@@ -1,0 +1,83 @@
+"""Importance-weighted k-means clustering (AQPIM §III-C, Eq. (2)).
+
+Port of `repro.core.kmeans`.  Centroids are weighted averages of their
+members (Eq. 2); a fixed number of iterations (4, paper §III-B); empty
+clusters keep their previous centroid; strided deterministic init.
+
+Every function takes leading batch dimensions (`...`) written out in place
+of the reference's `vmap` over heads and subvectors.  All accumulation is
+f32.  The assignment stays plain PyTorch, as the reference computes it in
+plain JAX.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+DEFAULT_ITERS = 4  # paper §III-B: "just four iterations converge"
+
+
+def pairwise_sq_dists(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+  """||x - c||^2 = ||x||^2 - 2 x.c + ||c||^2, in that order.
+
+  x (..., N, d), centroids (..., K, d) -> (..., N, K) f32.
+  """
+  x = x.float()
+  centroids = centroids.float()
+  x_sq = torch.sum(x * x, dim=-1, keepdim=True)               # (..., N, 1)
+  c_sq = torch.sum(centroids * centroids, dim=-1)             # (..., K)
+  cross = torch.matmul(x, centroids.transpose(-1, -2))        # (..., N, K)
+  return x_sq - 2.0 * cross + c_sq[..., None, :]
+
+
+def assign_clusters(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+  """Nearest centroid; ties take the first index (as `jnp.argmin`)."""
+  return torch.argmin(pairwise_sq_dists(x, centroids), dim=-1).to(torch.int32)
+
+
+def weighted_update(x: torch.Tensor, w: torch.Tensor, assign: torch.Tensor,
+                    centroids: torch.Tensor) -> torch.Tensor:
+  """One weighted centroid update (Eq. 2) in the reference's one-hot-matmul
+  form.  x (..., N, d), w (..., N), assign (..., N), centroids (..., K, d)."""
+  k = centroids.shape[-2]
+  onehot = torch.nn.functional.one_hot(assign.long(), k).float()  # (..., N, K)
+  wo = onehot * w.float()[..., None]
+  num = torch.matmul(wo.transpose(-1, -2), x.float())           # (..., K, d)
+  den = torch.sum(wo, dim=-2)                                   # (..., K)
+  new_centroids = num / torch.clamp_min(den, 1e-12)[..., None]
+  empty = (den <= 1e-12)[..., None]
+  return torch.where(empty, centroids.float(), new_centroids)
+
+
+def init_centroids(x: torch.Tensor, k: int) -> torch.Tensor:
+  """Deterministic strided init: every (N//K)-th token (x (..., N, d))."""
+  n = x.shape[-2]
+  stride = max(n // k, 1)
+  idx = (torch.arange(k, device=x.device) * stride) % n
+  return x[..., idx, :].float()
+
+
+def weighted_kmeans(x: torch.Tensor, w: torch.Tensor, k: int,
+                    iters: int = DEFAULT_ITERS,
+                    mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Importance-weighted k-means.
+
+  x (..., N, d); w (..., N) non-negative weights; mask (..., N) bool marks
+  real rows (padding gets zero weight and never seeds a centroid: masked rows
+  collapse onto row 0 for the init).  An all-zero weight row falls back to
+  uniform weights.  Returns (centroids (..., k, d) f32, assign (..., N) int32).
+  """
+  x_init = x
+  if mask is not None:
+    w = torch.where(mask, w, torch.zeros_like(w))
+    x_init = torch.where(mask[..., None], x, x[..., :1, :])
+  total = torch.sum(w.float(), dim=-1, keepdim=True)
+  w = torch.where(total > 0, w, torch.ones_like(w))
+
+  centroids = init_centroids(x_init, k)
+  for _ in range(iters):
+    centroids = weighted_update(x, w, assign_clusters(x, centroids),
+                                centroids)
+  return centroids, assign_clusters(x, centroids)

@@ -1,0 +1,423 @@
+"""KV-cache structures, contiguous layout: exact and PQ-compressed (AQPIM
+§III-A/H layout).
+
+Port of the contiguous parts of `repro.core.kv_cache`.  PQ cache layout per
+layer:
+
+  [ sink (exact) | PQ body (codebooks + per-token indices) | recent ring (exact) ]
+
+At decode the new token enters the recent ring; the entry it evicts is
+encoded against the codebook page and its indices land in the body.
+Codebooks stay fixed after prefill.
+
+Every function takes the batch written out (leading B) in place of the
+reference's `vmap` over requests; per-request `lengths` (B,) let rows sit at
+different positions.  Updates are functional (new tensors, inputs untouched),
+as in the reference, so one prefilled cache can feed several decode runs.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import pq, pq_attention, windowed
+from repro_torch.kernels import ops as kops
+
+
+def as_lengths(length, b: int, device=None) -> torch.Tensor:
+  """Normalize a scalar length or per-request (B,) lengths to (B,) int32."""
+  ln = torch.as_tensor(length, dtype=torch.int32, device=device)
+  if ln.dim() == 0:
+    return ln.expand(b).clone()
+  return ln.reshape(b)
+
+
+class PQCacheConfig(NamedTuple):
+  """Static geometry of a PQ cache."""
+  sink: int = 8            # exact sink tokens (paper §IV-A)
+  recent: int = 32         # exact sliding-window tokens (= t of Eq. 1)
+  body_capacity: int = 0   # max PQ-compressed tokens (multiple of n_windows)
+  n_windows: int = 1       # codebook pages (paper: 1 suffices for long context)
+  pq: pq.PQConfig = pq.PQConfig()
+
+  @property
+  def window_len(self) -> int:
+    return self.body_capacity // self.n_windows
+
+  def capacity(self) -> int:
+    return self.sink + self.recent + self.body_capacity
+
+
+class PQLayerCache(NamedTuple):
+  """One layer's compressed KV state.  Leading dims (B, H_kv)."""
+  sink_k: torch.Tensor          # (B, H, S0, D)
+  sink_v: torch.Tensor
+  recent_k: torch.Tensor        # (B, H, R, D) ring buffer
+  recent_v: torch.Tensor
+  key_codebooks: torch.Tensor   # (B, H, nW, m, K, dsub) bf16
+  value_codebooks: torch.Tensor
+  key_indices: torch.Tensor     # (B, H, Nb, m) uint8 (K<=256) or int16
+  value_indices: torch.Tensor
+
+
+class ExactLayerCache(NamedTuple):
+  k: torch.Tensor               # (B, H, N_max, D)
+  v: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Exact cache
+# ---------------------------------------------------------------------------
+
+def exact_cache_init(b: int, h: int, n_max: int, d: int, dtype,
+                     device="cpu") -> ExactLayerCache:
+  z = torch.zeros((b, h, n_max, d), dtype=dtype, device=device)
+  return ExactLayerCache(k=z, v=z.clone())
+
+
+def exact_cache_prefill(k: torch.Tensor, v: torch.Tensor,
+                        n_max: int) -> ExactLayerCache:
+  """k/v (B, H, N, D) -> cache padded to n_max."""
+  pad = (0, 0, 0, n_max - k.shape[2])
+  return ExactLayerCache(k=torch.nn.functional.pad(k, pad),
+                         v=torch.nn.functional.pad(v, pad))
+
+
+def exact_insert_one(k_c, v_c, k_new, v_new, lengths
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Insert one token per request at position lengths[b].
+
+  k_c/v_c (B, H, N, D); k_new/v_new (B, H, D); lengths (B,) tokens already
+  cached.  Shared by the plain and the kernel step.
+  """
+  n = k_c.shape[2]
+  sel = (torch.arange(n, device=k_c.device)[None, :]
+         == lengths.long()[:, None])[:, None, :, None]        # (B, 1, N, 1)
+  k_c = torch.where(sel, k_new[:, :, None, :].to(k_c.dtype), k_c)
+  v_c = torch.where(sel, v_new[:, :, None, :].to(v_c.dtype), v_c)
+  return k_c, v_c
+
+
+def exact_cache_append_and_attend(cache: ExactLayerCache, q, k_new, v_new,
+                                  length, scale: float
+                                  ) -> Tuple[torch.Tensor, ExactLayerCache]:
+  """Plain exact decode step: q (B, Hq, D), k_new/v_new (B, H, D)."""
+  b, hq, d = q.shape
+  h, n_max = cache.k.shape[1], cache.k.shape[2]
+  lengths = as_lengths(length, b, q.device)
+  k_c, v_c = exact_insert_one(cache.k, cache.v, k_new, v_new, lengths)
+  mask = (torch.arange(n_max, device=q.device)[None, :]
+          < (lengths.long() + 1)[:, None])[:, None, :]        # (B, 1, N)
+  out = pq_attention.exact_decode_attention(
+      q.reshape(b, h, hq // h, d), k_c, v_c, mask, scale)
+  return out.reshape(b, hq, d), ExactLayerCache(k=k_c, v=v_c)
+
+
+def exact_cache_append_and_attend_kernel(cache: ExactLayerCache, q, k_new,
+                                         v_new, length, scale: float
+                                         ) -> Tuple[torch.Tensor,
+                                                    ExactLayerCache]:
+  """Exact decode step through the flash-decode kernel (K2)."""
+  b, hq, d = q.shape
+  h = cache.k.shape[1]
+  lengths = as_lengths(length, b, q.device)
+  k_c, v_c = exact_insert_one(cache.k, cache.v, k_new, v_new, lengths)
+  out = kops.flash_decode(q.reshape(b, h, hq // h, d), k_c, v_c, lengths + 1,
+                          scale)
+  return out.reshape(b, hq, d), ExactLayerCache(k=k_c, v=v_c)
+
+
+# ---------------------------------------------------------------------------
+# PQ cache
+# ---------------------------------------------------------------------------
+
+def index_storage_dtype(cfg: PQCacheConfig) -> torch.dtype:
+  """Index width: uint8 at K<=256, else int16."""
+  return torch.uint8 if cfg.pq.k <= 256 else torch.int16
+
+
+def pq_cache_init(b: int, h: int, d: int, cfg: PQCacheConfig,
+                  dtype=torch.bfloat16, device="cpu") -> PQLayerCache:
+  m, k = cfg.pq.m, cfg.pq.k
+  dsub = d // m
+  idt = index_storage_dtype(cfg)
+
+  def z(shape, dt):
+    return torch.zeros(shape, dtype=dt, device=device)
+  return PQLayerCache(
+      sink_k=z((b, h, cfg.sink, d), dtype),
+      sink_v=z((b, h, cfg.sink, d), dtype),
+      recent_k=z((b, h, cfg.recent, d), dtype),
+      recent_v=z((b, h, cfg.recent, d), dtype),
+      # bf16 codebook storage; f32 at compute sites
+      key_codebooks=z((b, h, cfg.n_windows, m, k, dsub), torch.bfloat16),
+      value_codebooks=z((b, h, cfg.n_windows, m, k, dsub), torch.bfloat16),
+      key_indices=z((b, h, cfg.body_capacity, m), idt),
+      value_indices=z((b, h, cfg.body_capacity, m), idt),
+  )
+
+
+def _build_body(kp, vp, wp, mask, cfg: PQCacheConfig):
+  """Cluster and encode the padded body of K, then of V (in turn, so only
+  one of them holds k-means temporaries at a time)."""
+  k_cb, k_idx = windowed.windowed_build_codebooks(kp, wp, cfg.pq,
+                                                  cfg.n_windows, mask=mask)
+  k_cb = k_cb.to(torch.bfloat16)
+  v_cb, v_idx = windowed.windowed_build_codebooks(vp, wp, cfg.pq,
+                                                  cfg.n_windows, mask=mask)
+  idt = index_storage_dtype(cfg)
+  return (k_cb, v_cb.to(torch.bfloat16), k_idx.to(idt), v_idx.to(idt))
+
+
+def _pq_prefill_ragged(k, v, weights, lengths, cfg: PQCacheConfig
+                       ) -> PQLayerCache:
+  """PQ prefill with per-request valid lengths (right-padded inputs); the
+  reference's `_pq_prefill_one` with the batch written out.
+
+  Token p >= sink lives at ring slot (p - sink) % recent; body offsets are
+  positions [sink, length - recent).  Padding beyond `length` is masked out
+  of clustering and never becomes visible.
+  """
+  b, h, n, d = k.shape
+  s0, r, nb = cfg.sink, cfg.recent, cfg.body_capacity
+  if n < s0 + r:
+    raise ValueError(f"prefill capacity {n} < sink+recent {s0 + r}")
+  if n - s0 - r > nb:
+    raise ValueError(f"prefill capacity {n} can overflow body capacity {nb} "
+                     f"(sink={s0}, recent={r})")
+  dev = k.device
+  lengths = lengths.long()
+  start = torch.clamp(lengths - r, 0, n - r)                      # (B,)
+  pos = (start[:, None] + torch.arange(r, device=dev))             # (B, r)
+  slots = (torch.arange(r, device=dev)[None, :] + start[:, None] - s0) % r
+
+  def ring(x):
+    tok = torch.gather(x, 2, pos[:, None, :, None].expand(b, h, r, d))
+    out = torch.zeros((b, h, r, d), dtype=x.dtype, device=dev)
+    return out.scatter(2, slots[:, None, :, None].expand(b, h, r, d), tok)
+
+  pad = max(s0 + nb - n, 0)
+  kp = torch.nn.functional.pad(k, (0, 0, 0, pad))[:, :, s0:s0 + nb]
+  vp = torch.nn.functional.pad(v, (0, 0, 0, pad))[:, :, s0:s0 + nb]
+  wp = torch.nn.functional.pad(weights, (0, pad))[:, :, s0:s0 + nb]
+  body_n = torch.clamp(lengths - s0 - r, 0, nb)
+  mask = (torch.arange(nb, device=dev)[None, :] < body_n[:, None])
+  k_cb, v_cb, k_idx, v_idx = _build_body(
+      kp, vp, wp, mask[:, None, :].expand(b, h, nb), cfg)
+  return PQLayerCache(
+      sink_k=k[:, :, :s0], sink_v=v[:, :, :s0],
+      recent_k=ring(k), recent_v=ring(v),
+      key_codebooks=k_cb, value_codebooks=v_cb,
+      key_indices=k_idx, value_indices=v_idx)
+
+
+def pq_cache_prefill(k, v, weights, cfg: PQCacheConfig,
+                     length: Optional[torch.Tensor] = None) -> PQLayerCache:
+  """Compress a prefilled KV (B, H, N, D) into the PQ cache (paper Fig. 3a
+  prefill step 3).  Body tokens are positions [sink, N - recent), placed at
+  body offsets [0, N - sink - recent); `weights` (B, H, N) are the Eq. 1
+  importance weights; `length` (B,) per-request lengths or None for N."""
+  b, h, n, d = k.shape
+  if length is not None:
+    return _pq_prefill_ragged(k, v, weights, as_lengths(length, b, k.device),
+                              cfg)
+  s0, r, nb = cfg.sink, cfg.recent, cfg.body_capacity
+  if n < s0 + r:
+    raise ValueError(f"prefill length {n} < sink+recent {s0 + r}")
+  body_n = n - s0 - r
+  if body_n > nb:
+    raise ValueError(f"body {body_n} exceeds capacity {nb}")
+  dev = k.device
+  # ring layout: token (s0 + i) lives at slot i % r
+  slots = (torch.arange(r, device=dev) + (n - r - s0)) % r
+  recent_k = torch.zeros((b, h, r, d), dtype=k.dtype, device=dev)
+  recent_v = torch.zeros((b, h, r, d), dtype=v.dtype, device=dev)
+  recent_k[:, :, slots] = k[:, :, n - r:]
+  recent_v[:, :, slots] = v[:, :, n - r:]
+
+  # pad the body to full capacity so window boundaries are static
+  pad = nb - body_n
+  body_k = torch.nn.functional.pad(k[:, :, s0:n - r], (0, 0, 0, pad))
+  body_v = torch.nn.functional.pad(v[:, :, s0:n - r], (0, 0, 0, pad))
+  body_w = torch.nn.functional.pad(weights[:, :, s0:n - r], (0, pad))
+  mask = torch.arange(nb, device=dev) < body_n
+  k_cb, v_cb, k_idx, v_idx = _build_body(body_k, body_v, body_w,
+                                         mask.expand(b, h, nb), cfg)
+  return PQLayerCache(
+      sink_k=k[:, :, :s0], sink_v=v[:, :, :s0],
+      recent_k=recent_k, recent_v=recent_v,
+      key_codebooks=k_cb, value_codebooks=v_cb,
+      key_indices=k_idx, value_indices=v_idx)
+
+
+class PQRingStep(NamedTuple):
+  """Everything one PQ decode step changes except where the encoded indices
+  land.  Leading dim B on every field."""
+  sink_k: torch.Tensor          # (B, H, S0, D) updated
+  sink_v: torch.Tensor
+  recent_k: torch.Tensor        # (B, H, R, D) updated
+  recent_v: torch.Tensor
+  k_idx_new: torch.Tensor       # (B, H, m) encoded eviction (unused when !do_evict)
+  v_idx_new: torch.Tensor
+  ev: torch.Tensor              # (B,) body offset being filled (clipped)
+  do_evict: torch.Tensor        # (B,) bool
+  sink_mask: torch.Tensor       # (B, S0)
+  rec_mask: torch.Tensor        # (B, R)
+  body_len: torch.Tensor        # (B,) valid body tokens after this step
+
+
+def _pq_ring_step(sink_k, sink_v, recent_k, recent_v, key_codebooks,
+                  value_codebooks, k_new, v_new, lengths,
+                  cfg: PQCacheConfig) -> PQRingStep:
+  """Steps 1-3 of a PQ decode step (the reference's `_pq_ring_step_one`
+  with the batch written out): evict -> encode, insert, masks.
+
+  Reads and writes of the single affected ring slot use one-hot masks, so
+  untouched rows pass through bit for bit.  lengths (B,) tokens already
+  cached (incl. prefill).
+  """
+  s0, r, nb = cfg.sink, cfg.recent, cfg.body_capacity
+  dev = recent_k.device
+  b, h = recent_k.shape[:2]
+  pos = lengths.long()
+
+  in_sink = pos < s0
+  slot = torch.clamp((pos - s0) % r, 0, r - 1)
+  evict_pos = pos - s0 - r
+
+  # 1. encode the evicted ring entry into the PQ body
+  do_evict = evict_pos >= 0
+  ev = torch.clamp(evict_pos, 0, nb - 1)
+  win_id = torch.clamp(ev // max(cfg.window_len, 1), 0, cfg.n_windows - 1)
+  rsel = (torch.arange(r, device=dev)[None, :]
+          == slot[:, None])[:, None, :, None]                 # (B, 1, R, 1)
+  old_k = torch.sum(torch.where(rsel, recent_k.float(), 0.0), dim=2)
+  old_v = torch.sum(torch.where(rsel, recent_v.float(), 0.0), dim=2)
+  wins = win_id[:, None].expand(b, h)
+  k_idx_new = windowed.windowed_encode(old_k, key_codebooks, wins)
+  v_idx_new = windowed.windowed_encode(old_v, value_codebooks, wins)
+
+  # 2. insert the new token (sink while warming up, else ring)
+  sink_sel = ((torch.arange(s0, device=dev)[None, :]
+               == torch.clamp(pos, 0, s0 - 1)[:, None])
+              & in_sink[:, None])[:, None, :, None]
+  ring_sel = ((torch.arange(r, device=dev)[None, :] == slot[:, None])
+              & ~in_sink[:, None])[:, None, :, None]
+
+  def insert(buf, sel, val):
+    return torch.where(sel, val[:, :, None, :].to(buf.dtype), buf)
+  sink_k = insert(sink_k, sink_sel, k_new)
+  sink_v = insert(sink_v, sink_sel, v_new)
+  recent_k = insert(recent_k, ring_sel, k_new)
+  recent_v = insert(recent_v, ring_sel, v_new)
+
+  # 3. masks after insertion
+  n_tok = pos + 1
+  sink_mask = (torch.arange(s0, device=dev)[None, :]
+               < torch.clamp_max(n_tok, s0)[:, None])
+  rec_count = torch.clamp(n_tok - s0, 0, r)
+  rec_mask = torch.arange(r, device=dev)[None, :] < rec_count[:, None]
+  body_len = torch.clamp(n_tok - s0 - r, 0, nb)
+  return PQRingStep(
+      sink_k=sink_k, sink_v=sink_v, recent_k=recent_k, recent_v=recent_v,
+      k_idx_new=k_idx_new, v_idx_new=v_idx_new, ev=ev, do_evict=do_evict,
+      sink_mask=sink_mask, rec_mask=rec_mask, body_len=body_len)
+
+
+def _scatter_evicted(cache: PQLayerCache, step: PQRingStep):
+  """Write each evicting row's encoded indices at its body offset (one-hot
+  masked row write)."""
+  nb = cache.key_indices.shape[2]
+  ev_sel = ((torch.arange(nb, device=step.ev.device)[None, :]
+             == step.ev[:, None])
+            & step.do_evict[:, None])[:, None, :, None]       # (B, 1, nb, 1)
+
+  def scatter(store, new):
+    return torch.where(ev_sel, new[:, :, None, :].to(store.dtype), store)
+  return (scatter(cache.key_indices, step.k_idx_new),
+          scatter(cache.value_indices, step.v_idx_new))
+
+
+def pq_cache_append_and_attend(cache: PQLayerCache, q, k_new, v_new, length,
+                               cfg: PQCacheConfig, scale: float,
+                               value_mode: str = "bucket"
+                               ) -> Tuple[torch.Tensor, PQLayerCache]:
+  """Plain PQ decode step: insert token, evict -> encode, attend jointly on
+  sink | body | recent (paper Fig. 3a decode).  q (B, Hq, D)."""
+  b, hq, d = q.shape
+  h = cache.recent_k.shape[1]
+  lengths = as_lengths(length, b, q.device)
+  step = _pq_ring_step(cache.sink_k, cache.sink_v, cache.recent_k,
+                       cache.recent_v, cache.key_codebooks,
+                       cache.value_codebooks, k_new, v_new, lengths, cfg)
+  key_indices, value_indices = _scatter_evicted(cache, step)
+  nb = cfg.body_capacity
+  body_mask = (torch.arange(nb, device=q.device)[None, :]
+               < step.body_len[:, None])
+  windowed_cb = cfg.n_windows > 1
+  seg = pq_attention.PQAttnSegments(
+      sink_k=step.sink_k, sink_v=step.sink_v,
+      sink_mask=step.sink_mask[:, None, :],
+      key_codebook=(cache.key_codebooks if windowed_cb
+                    else cache.key_codebooks[:, :, 0]),
+      value_codebook=(cache.value_codebooks if windowed_cb
+                      else cache.value_codebooks[:, :, 0]),
+      key_indices=key_indices, value_indices=value_indices,
+      body_mask=body_mask[:, None, :],
+      recent_k=step.recent_k, recent_v=step.recent_v,
+      recent_mask=step.rec_mask[:, None, :])
+  out = pq_attention.pq_decode_attention(
+      q.reshape(b, h, hq // h, d), seg, scale, value_mode=value_mode)
+  new_cache = PQLayerCache(
+      sink_k=step.sink_k, sink_v=step.sink_v,
+      recent_k=step.recent_k, recent_v=step.recent_v,
+      key_codebooks=cache.key_codebooks,
+      value_codebooks=cache.value_codebooks,
+      key_indices=key_indices, value_indices=value_indices)
+  return out.reshape(b, hq, d), new_cache
+
+
+def _pq_segments_combine(q, step_masks, sink_k, sink_v, recent_k, recent_v,
+                         body, scale: float) -> torch.Tensor:
+  """Combine the kernel's body (out, max, denom) with the plain sink and
+  recent segment stats.  q (B, H, g, D); masks (B, S0) and (B, R)."""
+  sink_mask, rec_mask = step_masks
+  s_out, s_m, s_l = pq_attention.segment_attention_stats(
+      q, sink_k, sink_v, sink_mask[:, None, :], scale)
+  r_out, r_m, r_l = pq_attention.segment_attention_stats(
+      q, recent_k, recent_v, rec_mask[:, None, :], scale)
+  b_out, b_m, b_l = body
+  return kops.combine_attention_segments(
+      [b_out, s_out, r_out], [b_m, s_m, r_m], [b_l, s_l, r_l])
+
+
+def pq_cache_append_and_attend_kernel(cache: PQLayerCache, q, k_new, v_new,
+                                      length, cfg: PQCacheConfig,
+                                      scale: float
+                                      ) -> Tuple[torch.Tensor, PQLayerCache]:
+  """PQ decode step with the body through the PQ decode kernel (K1);
+  single-window codebooks only."""
+  if cfg.n_windows != 1:
+    raise ValueError("the kernel path requires a single codebook window")
+  b, hq, d = q.shape
+  h = cache.recent_k.shape[1]
+  lengths = as_lengths(length, b, q.device)
+  step = _pq_ring_step(cache.sink_k, cache.sink_v, cache.recent_k,
+                       cache.recent_v, cache.key_codebooks,
+                       cache.value_codebooks, k_new, v_new, lengths, cfg)
+  key_indices, value_indices = _scatter_evicted(cache, step)
+  qg = q.reshape(b, h, hq // h, d)
+  body = kops.pq_decode_attention(
+      qg, cache.key_codebooks[:, :, 0], cache.value_codebooks[:, :, 0],
+      key_indices, value_indices, step.body_len[:, None].expand(b, h), scale)
+  out = _pq_segments_combine(
+      qg, (step.sink_mask, step.rec_mask), step.sink_k, step.sink_v,
+      step.recent_k, step.recent_v, body, scale)
+  new_cache = PQLayerCache(
+      sink_k=step.sink_k, sink_v=step.sink_v,
+      recent_k=step.recent_k, recent_v=step.recent_v,
+      key_codebooks=cache.key_codebooks,
+      value_codebooks=cache.value_codebooks,
+      key_indices=key_indices, value_indices=value_indices)
+  return out.reshape(b, hq, d), new_cache

@@ -1,0 +1,79 @@
+"""Batched wrappers around the decode kernels, in the layouts the caches use.
+
+Port of the contiguous-layout part of `repro/kernels/ops.py`: each wrapper
+folds (batch, kv head) into the kernels' BH axis and unfolds the result.
+The kernel modules decide per device: plain PyTorch on CPU tensors, the CUDA
+kernel on CUDA tensors.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import paged_flash_decode as _pfd
+from repro_torch.kernels import pq_decode as _pqd
+
+
+def pq_decode_attention(
+    q: torch.Tensor,               # (B, H_kv, g, d)
+    key_codebook: torch.Tensor,    # (B, H_kv, m, K, dsub)
+    value_codebook: torch.Tensor,  # (B, H_kv, m, K, dsub)
+    key_indices: torch.Tensor,     # (B, H_kv, N, m)
+    value_indices: torch.Tensor,   # (B, H_kv, N, m)
+    length: torch.Tensor,          # (B, H_kv) valid body tokens
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """PQ body attention.  Returns (out (B,H,g,d) f32, max (B,H,g), denom
+  (B,H,g))."""
+  b, h, g, d = q.shape
+  bh = b * h
+  m, k_cent, dsub = key_codebook.shape[2:]
+  n = key_indices.shape[2]
+  out, stats = _pqd.pq_decode_attention(
+      q.reshape(bh, g, d).contiguous(),
+      key_codebook.reshape(bh, m, k_cent, dsub).contiguous(),
+      value_codebook.reshape(bh, m, k_cent, dsub).contiguous(),
+      key_indices.reshape(bh, n, m).contiguous(),
+      value_indices.reshape(bh, n, m).contiguous(),
+      length.reshape(bh).to(torch.int32).contiguous(), scale)
+  out = out.reshape(b, h, g, d)
+  stats = stats.reshape(b, h, 2, g)
+  return out, stats[:, :, 0], stats[:, :, 1]
+
+
+def flash_decode(
+    q: torch.Tensor,        # (B, H_kv, g, d)
+    k: torch.Tensor,        # (B, H_kv, N, d)
+    v: torch.Tensor,        # (B, H_kv, N, d)
+    length: torch.Tensor,   # (B,) valid tokens per request
+    scale: float,
+) -> torch.Tensor:
+  """Dense-storage flash decode (exact policy, contiguous layout)."""
+  b, h, g, d = q.shape
+  n = k.shape[2]
+  length = length.to(torch.int32).repeat_interleave(h).contiguous()
+  out = _pfd.flash_decode(
+      q.reshape(b * h, g, d).contiguous(),
+      k.reshape(b * h, n, d).contiguous(), v.reshape(b * h, n, d).contiguous(),
+      length, scale)
+  return out.reshape(b, h, g, d)
+
+
+def combine_attention_segments(outs, maxes, denoms) -> torch.Tensor:
+  """Exact flash-decoding combine of per-segment partial attentions.
+
+  Each segment supplies a normalised output plus its (max, denom); the
+  combine is the softmax over the union of segments.  Shapes: out
+  (..., g, d); max/denom (..., g).
+  """
+  m_all = functools.reduce(torch.maximum, maxes)
+  num = None
+  den = None
+  for o, mm, l in zip(outs, maxes, denoms):
+    w = l * torch.exp(mm - m_all)
+    term = o * w[..., None]
+    num = term if num is None else num + term
+    den = w if den is None else den + w
+  return num / torch.clamp_min(den, 1e-30)[..., None]

@@ -19,3 +19,8 @@ def rng():
 @pytest.fixture
 def key():
   return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+  config.addinivalue_line(
+      "markers", "cuda: needs a CUDA card (sm_90a); skipped without one")
