@@ -7,16 +7,25 @@ Needs one CUDA card (built for an H100, sm_90a) and the CUDA toolkit.  It
   1. builds the decode kernels from `src/repro_torch/csrc/` (one `nvcc` per
      source, all started together) into `build/repro_torch/`;
   2. holds each kernel against its plain PyTorch version on the card at the
-     serve path's full-width shapes and times kernel, plain version, the
-     bound and (where one exists) a single PyTorch library call;
+     full-width shapes its path gives it (K1/K2 the contiguous serve path,
+     K3/K4 the paged engine path: layer 21 of 22, shuffled block tables
+     with trash entries, ragged lengths) and times kernel, plain version,
+     the bound and (where one exists) a single PyTorch library call;
   3. serves full-width tinyllama-1.1b (random bf16 weights from a seed)
      through `ServeRun` with the `pq` and the `exact` policy, batch 4,
      prompt 1024, 16 generated tokens, and checks from the launch counters
-     that every layer of every decode step ran its kernel;
-  4. from one prefilled cache per policy, runs 4 teacher-forced decode steps
-     with the `cuda` and the `torch` dispatch and compares the logits;
-  5. profiles 3 decode steps per policy (`torch.profiler`): device busy
-     share and the kernels that take the device time.
+     that every layer of every decode step ran its kernel (K1 or K2);
+  4. serves it through the continuous-batching `ServeEngine` on the paged
+     layout with the paged scheduler (the `--engine` CLI demo: 6 requests of
+     1024 down to 939 prompt tokens, 16 new tokens each, 4 slots), for
+     `pq`, `exact`, and `pq` with a pool cut so the scheduler must preempt,
+     and checks that every layer of every decode step ran K3 or K4;
+  5. from one prefilled cache per policy, runs 4 teacher-forced decode steps
+     with the `cuda` and the `torch` dispatch and compares the logits, on
+     the contiguous layout (`Model.decode_step`) and on the paged layout
+     (block-native program against the dense gather program);
+  6. profiles 3 decode steps per policy and layout (`torch.profiler`):
+     device busy share and the kernels that take the device time.
 
 Every check that fails raises, so the script exits non-zero.  The last line
 is a JSON object naming the device; the line before it lists the kernels.
@@ -30,6 +39,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -38,6 +48,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 ARCH = "tinyllama-1.1b"
 BATCH, PROMPT, GEN = 4, 1024, 16
 PARITY_STEPS = 4
+N_LAYERS = 22
+# the paged engine path: `python -m repro_torch.launch.serve --engine ...`
+# (context 1056 = 66 blocks of 16; the pq body holds 1024 = 64 blocks)
+ENGINE_ARGS = ["--arch", ARCH, "--engine", "--cache-layout", "paged",
+               "--scheduler", "paged", "--batch", str(BATCH), "--prompt-len",
+               str(PROMPT), "--gen", "32", "--device", "cuda"]
+ENGINE_REQUESTS = BATCH + 2
+BLK = 16
+# a pq pool that admits the two longest prompts (bodies of 984 and 967
+# tokens: 62 + 61 blocks) with one block left, so their growth runs it dry
+# and the paged scheduler must preempt
+PREEMPT_BLOCKS = 124
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per s
 # Kernel vs plain version, both f32 accumulation over the same bf16 inputs;
@@ -180,29 +202,166 @@ def kernel_phase(dev, tag) -> dict:
   return res
 
 
-def serve_phase(dev, tag) -> dict:
-  """Full-width serve through ServeRun; counters prove the kernels ran."""
+def _paged_tables(gen, dev, lengths, nb, pool_blocks):
+  """(B, nb) int32: a seeded permutation of pool ids, with the trash block
+  (= pool_blocks) past each row's length."""
+  b = lengths.shape[0]
+  perm = torch.randperm(pool_blocks, generator=gen, device=dev)[:b * nb]
+  tables = perm.reshape(b, nb).to(torch.int32)
+  past = (torch.arange(nb, device=dev)[None, :]
+          >= (-(-lengths.long() // BLK))[:, None])
+  return tables.masked_fill(past, pool_blocks)
+
+
+def paged_kernel_phase(dev, tag) -> dict:
+  """K3 and K4 against their plain versions at the paged engine path's
+  shapes: the engine's first batch (prompts 1024, 1007, 990, 973), layer
+  21 of 22, pools of 4x a request's blocks, shuffled tables."""
   from repro_torch.kernels import paged_flash_decode as pfd
   from repro_torch.kernels import pq_decode as pqd
+
+  gen = torch.Generator(device=dev).manual_seed(1)
+  b, h, g, d, m = BATCH, 4, 8, 64, 32
+  bh, dsub, scale, layer = b * h, d // m, d ** -0.5, N_LAYERS - 1
+  prompts = torch.tensor([PROMPT - 17 * i for i in range(b)],
+                         dtype=torch.int32, device=dev)
+  q = torch.randn(bh, g, d, generator=gen, device=dev).to(torch.bfloat16)
+  res = {}
+
+  # K3: the pq body, 64 blocks per request; int16 at K = 512, uint8 at 256
+  nb = 1024 // BLK
+  pool_blocks = 4 * nb
+  body = prompts - 40                         # sink 8 + recent 32
+  ragged = torch.tensor([0, 1, 517, nb * BLK], dtype=torch.int32, device=dev)
+  errs, inputs = {}, {}
+  for k_cent, idx_dtype in ((512, torch.int16), (256, torch.uint8)):
+    kcb, vcb = (torch.randn(bh, m, k_cent, dsub, generator=gen, device=dev
+                            ).to(torch.bfloat16) for _ in range(2))
+    shape = (pool_blocks + 1, N_LAYERS, h, BLK, m)
+    kp, vp = (torch.randint(0, k_cent, shape, generator=gen, device=dev
+                            ).to(idx_dtype) for _ in range(2))
+    inputs[k_cent] = (kcb, vcb, kp, vp)
+    errs[k_cent] = 0.0
+    for length in (body, ragged):
+      tables = _paged_tables(gen, dev, length, nb, pool_blocks)
+      out, stats = pqd.pq_decode_attention_paged(q, kcb, vcb, kp, vp, tables,
+                                                 layer, length, scale)
+      ref_out, ref_stats = pqd.pq_decode_attention_paged_plain(
+          q, kcb, vcb, kp, vp, tables, layer, length, scale)
+      torch.cuda.synchronize()
+      if not torch.isfinite(out).all():
+        raise AssertionError("K3 output is not finite")
+      torch.testing.assert_close(stats, ref_stats, atol=KERNEL_ATOL,
+                                 rtol=1e-4)
+      empty = (length == 0).repeat_interleave(h)
+      if empty.any() and (out[empty].abs().max() != 0
+                          or (stats[empty, 1] != 0).any()):
+        raise AssertionError("K3 empty rows must give out 0 and denom 0")
+      errs[k_cent] = max(errs[k_cent], float((out - ref_out).abs().max()))
+  err, err_u8 = errs[512], errs[256]
+  if not max(err, err_u8) <= KERNEL_ATOL:
+    raise AssertionError(f"K3 max abs err {err} / uint8 {err_u8} > "
+                         f"{KERNEL_ATOL}")
+  kcb, vcb, kp, vp = inputs[512]
+  tables = _paged_tables(gen, dev, body, nb, pool_blocks)
+  ms = cuda_time_ms(lambda: pqd.pq_decode_attention_paged(
+      q, kcb, vcb, kp, vp, tables, layer, body, scale))
+  plain_ms = cuda_time_ms(lambda: pqd.pq_decode_attention_paged_plain(
+      q, kcb, vcb, kp, vp, tables, layer, body, scale))
+  tokens = int(body.sum()) * h
+  nbytes = (q.numel() * 2 + (kcb.numel() + vcb.numel()) * 2
+            + 2 * tokens * m * 2 + tables.numel() * 4 + b * 4
+            + bh * g * d * 4 + bh * 2 * g * 4)
+  ops = tokens * g * d * 2 * 2
+  b_ms, b_by = bound(nbytes, ops, torch.bfloat16)
+  res["pq_decode_attention_paged"] = dict(
+      name="pq_decode_attention_paged", route="cuda",
+      source="src/repro_torch/csrc/pq_decode_paged.cu",
+      replaces="src/repro/kernels/pq_decode.py:289", max_abs_err=err,
+      max_abs_err_uint8=err_u8, tolerance=KERNEL_ATOL, ms=ms,
+      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+  print(f"{tag} K3 pq_decode_attention_paged: max_abs_err {err:.3e} "
+        f"(int16, K=512; uint8, K=256: {err_u8:.3e}; tol {KERNEL_ATOL}) "
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+        f"{b_ms * 1e3:.3f} us ({b_by}) library n/a")
+
+  # K4: exact K/V pools, 66 blocks per request (context 1056), bf16
+  nb = (PROMPT + 32) // BLK
+  pool_blocks = 4 * nb
+  shape = (pool_blocks + 1, N_LAYERS, h, BLK, d)
+  kp, vp = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+  cached = prompts + 1
+  ragged = torch.tensor([0, 1, 517, nb * BLK], dtype=torch.int32, device=dev)
+  err = 0.0
+  for length in (cached, ragged):
+    tables = _paged_tables(gen, dev, length, nb, pool_blocks)
+    out = pfd.paged_flash_decode(q, kp, vp, tables, layer, length, scale)
+    ref = pfd.paged_flash_decode_plain(q, kp, vp, tables, layer, length,
+                                       scale)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+      raise AssertionError("K4 output is not finite")
+    empty = (length == 0).repeat_interleave(h)
+    if empty.any() and out[empty].abs().max() != 0:
+      raise AssertionError("K4 empty rows must give out 0")
+    err = max(err, float((out - ref).abs().max()))
+  if not err <= KERNEL_ATOL:
+    raise AssertionError(f"K4 max abs err {err} > {KERNEL_ATOL}")
+  tables = _paged_tables(gen, dev, cached, nb, pool_blocks)
+  ms = cuda_time_ms(lambda: pfd.paged_flash_decode(q, kp, vp, tables, layer,
+                                                   cached, scale))
+  plain_ms = cuda_time_ms(lambda: pfd.paged_flash_decode_plain(
+      q, kp, vp, tables, layer, cached, scale))
+  tokens = int(cached.sum()) * h
+  nbytes = (q.numel() * 2 + 2 * tokens * d * 2 + tables.numel() * 4 + b * 4
+            + bh * g * d * 4)
+  ops = tokens * g * d * 2 * 2
+  b_ms, b_by = bound(nbytes, ops, torch.bfloat16)
+  res["paged_flash_decode"] = dict(
+      name="paged_flash_decode", route="cuda",
+      source="src/repro_torch/csrc/paged_flash_decode.cu",
+      replaces="src/repro/kernels/paged_flash_decode.py:192",
+      max_abs_err=err, tolerance=KERNEL_ATOL, ms=ms, plain_ms=plain_ms,
+      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+  print(f"{tag} K4 paged_flash_decode: max_abs_err {err:.3e} (tol "
+        f"{KERNEL_ATOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+        f"{b_ms * 1e3:.3f} us ({b_by}) library n/a")
+  return res
+
+
+def launch_counters() -> dict:
+  """Every kernel wrapper, by the name the kernels line uses."""
+  from repro_torch.kernels import paged_flash_decode as pfd
+  from repro_torch.kernels import pq_decode as pqd
+  return {"pq_decode_attention": pqd.pq_decode_attention,
+          "flash_decode": pfd.flash_decode,
+          "pq_decode_attention_paged": pqd.pq_decode_attention_paged,
+          "paged_flash_decode": pfd.paged_flash_decode}
+
+
+def serve_phase(dev, tag) -> dict:
+  """Full-width serve through ServeRun; counters prove the kernels ran."""
   from repro_torch.launch.serve import ServeRun
 
-  counters = {"pq": pqd.pq_decode_attention, "exact": pfd.flash_decode}
-  models = {}
-  pqd.pq_decode_attention.launches = 0
-  pfd.flash_decode.launches = 0
+  counters = launch_counters()
+  kernel_of = {"pq": "pq_decode_attention", "exact": "flash_decode"}
+  models, launches = {}, {name: 0 for name in counters}
   for policy in ("pq", "exact"):
     run = ServeRun(arch=ARCH, reduced=False, batch=BATCH, prompt_len=PROMPT,
                    gen=GEN, cache_policy=policy, decode_kernel="auto",
                    device=str(dev), seed=0)
     model = run.build()
     cfg = model.cfg
-    before = {p: c.launches for p, c in counters.items()}
+    for c in counters.values():
+      c.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     res = run.run(model)
     peak = torch.cuda.max_memory_allocated(dev)
+    grew = {name: c.launches for name, c in counters.items()}
     steps = 1 + 2 * GEN          # warmup step, timed loop, latency pass
-    grew = {p: c.launches - before[p] for p, c in counters.items()}
-    want = {p: (steps * cfg.n_layers if p == policy else 0) for p in counters}
+    want = {name: (steps * cfg.n_layers if name == kernel_of[policy] else 0)
+            for name in counters}
     if grew != want:
       raise AssertionError(f"{policy}: kernel launches {grew} != {want} "
                            f"({steps} decode steps x {cfg.n_layers} layers)")
@@ -216,11 +375,68 @@ def serve_phase(dev, tag) -> dict:
           f"{res['tok_per_s']:.2f} tok/s step p50 "
           f"{res['decode_step_p50_ms']:.4f} ms p99 "
           f"{res['decode_step_p99_ms']:.4f} ms peak mem "
-          f"{peak / 2**30:.3f} GiB kernel launches {grew[policy]} "
-          f"({steps} steps x {cfg.n_layers} layers)")
+          f"{peak / 2**30:.3f} GiB kernel launches "
+          f"{grew[kernel_of[policy]]} ({steps} steps x {cfg.n_layers} "
+          f"layers)")
     print(f"{tag} serve {policy} sample tokens: {toks[0].tolist()}")
     models[policy] = (run, model)
-  return models
+    for name in counters:
+      launches[name] += grew[name]
+  return models, launches
+
+
+def engine_phase(tag) -> dict:
+  """Full-width continuous batching on the paged layout through the engine
+  CLI's demo; counters prove every layer of every decode step (warm-up
+  request included) ran K3 (pq) or K4 (exact) and nothing else."""
+  from repro_torch.launch import serve
+
+  counters = launch_counters()
+  kernel_of = {"pq": "pq_decode_attention_paged",
+               "exact": "paged_flash_decode"}
+  launches = {name: 0 for name in counters}
+  for label, policy, extra in (
+      ("pq", "pq", []), ("exact", "exact", []),
+      ("pq preempt", "pq", ["--num-blocks", str(PREEMPT_BLOCKS)])):
+    args = serve.make_parser().parse_args(
+        ENGINE_ARGS + ["--cache-policy", policy] + extra)
+    for c in counters.values():
+      c.launches = 0
+    res = serve.run_engine_demo(args)
+    grew = {name: c.launches for name, c in counters.items()}
+    steps = res["decode_steps"] + res["warmup_decode_steps"]
+    want = {name: (steps * N_LAYERS if name == kernel_of[policy] else 0)
+            for name in counters}
+    if grew != want:
+      raise AssertionError(f"engine {label}: kernel launches {grew} != "
+                           f"{want} ({steps} decode steps x {N_LAYERS} "
+                           f"layers)")
+    if (res["decode_kernel"], res["decode_path"]) != ("cuda", "block-native"):
+      raise AssertionError(f"engine {label}: decode ran {res['decode_kernel']}"
+                           f" {res['decode_path']}")
+    reqs = res["requests"]
+    if (res["finished"] != ENGINE_REQUESTS or len(reqs) != ENGINE_REQUESTS
+        or any(len(r["tokens"]) != GEN for r in reqs)
+        or any(not 0 <= t < 32000 for r in reqs for t in r["tokens"])):
+      raise AssertionError(f"engine {label}: requests did not all finish "
+                           f"with {GEN} valid tokens: {reqs}")
+    if extra and res["preempts"] < 1:
+      raise AssertionError(f"engine {label}: {PREEMPT_BLOCKS} blocks did "
+                           f"not force a preemption")
+    lat, by = res["decode_latency"], res["layout_bytes"]
+    print(f"{tag} engine {label}: {res['tok_per_s']:.2f} tok/s "
+          f"({sum(len(r['tokens']) for r in reqs)} tokens in "
+          f"{res['wall_s']:.4f} s), decode step p50 {lat['p50_ms']} ms p99 "
+          f"{lat['p99_ms']} ms over {lat['steps']} steps, occupancy "
+          f"{100 * res['occupancy']:.1f}%, preempts {res['preempts']}, peak "
+          f"{by['peak_blocks']}/{by['num_blocks']} blocks of "
+          f"{by['block_bytes']} B, {kernel_of[policy]} launches "
+          f"{grew[kernel_of[policy]]} ({steps} steps x {N_LAYERS} layers)")
+    print(f"{tag} engine {label} decode traffic: "
+          f"{json.dumps(res['decode_traffic'])}")
+    for name in counters:
+      launches[name] += grew[name]
+  return launches
 
 
 def parity_phase(models, tag) -> None:
@@ -262,41 +478,126 @@ def parity_phase(models, tag) -> None:
           f"{LOGIT_ATOL}), {checked} decisive tokens equal")
 
 
-def profile_phase(models, tag) -> None:
-  """Where a decode step's time goes: device busy share and top kernels."""
+def paged_parity_phase(tag) -> dict:
+  """cuda vs torch dispatch on the paged layout, from one admitted state
+  per policy: the block-native program (K3/K4 reading the pools in place)
+  against the dense gather -> `Model.decode_step` -> scatter program on a
+  copy of the same storage, teacher-forced on the plain path's tokens.
+  Returns the engines (block-native, admitted) for the profile phase."""
+  from repro_torch.launch import serve
+  engines = {}
+  for policy in ("pq", "exact"):
+    args = serve.make_parser().parse_args(
+        ENGINE_ARGS + ["--cache-policy", policy])
+    engine = serve.build_engine(args)
+    layout, model = engine.layout, engine.model
+    if not layout.block_native:
+      raise AssertionError(f"paged {policy}: the layout is not block-native")
+    rng = np.random.default_rng(1)
+    for i in range(BATCH):
+      engine.submit(rng.integers(0, model.cfg.vocab_size,
+                                 size=PROMPT - 17 * i),
+                    max_new_tokens=PARITY_STEPS + 2)
+    engine._admit()
+    cuda_policy = model.cache_policy
+    torch_policy = dataclasses.replace(
+        model.cfg, decode_kernel="torch").make_cache_policy(
+            model.context_len, model.device)
+    st_c = layout.storage
+    st_t = [t.clone() for t in st_c]
+    dev = model.device
+    cur = torch.from_numpy(engine._cur).to(dev)
+    worst, checked = 0.0, 0
+    for i in range(PARITY_STEPS):
+      engine._ensure_blocks()
+      tables = torch.from_numpy(layout.manager.tables).to(dev)
+      lengths = torch.from_numpy(engine._lengths).to(dev)
+      lc, st_c = layout._decode_native_body(cur, st_c, tables, lengths)
+      model.cache_policy = torch_policy
+      try:
+        lt, st_t = layout._decode_fused_body(cur, st_t, tables, lengths)
+      finally:
+        model.cache_policy = cuda_policy
+      lc, lt = lc.float(), lt.float()
+      if not torch.isfinite(lc).all():
+        raise AssertionError(f"paged {policy}: non-finite logits")
+      worst = max(worst, float((lc - lt).abs().max()))
+      top2 = torch.topk(lt, 2, dim=-1).values
+      decisive = (top2[:, 0] - top2[:, 1]) > LOGIT_ATOL
+      if (torch.argmax(lc, -1) != torch.argmax(lt, -1))[decisive].any():
+        raise AssertionError(f"paged {policy}: tokens differ at step {i}")
+      checked += int(decisive.sum())
+      cur = torch.argmax(lt, -1).to(torch.int32)
+      engine._lengths += 1
+    layout.storage = st_c
+    engine._cur[:] = cur.cpu().numpy()
+    if not worst <= LOGIT_ATOL:
+      raise AssertionError(f"paged {policy}: block-native vs dense logits "
+                           f"differ by {worst} > {LOGIT_ATOL}")
+    print(f"{tag} paged parity {policy}: block-native (cuda) vs dense "
+          f"gather (torch), {PARITY_STEPS} steps, max |dlogit| "
+          f"{worst:.4f} (tol {LOGIT_ATOL}), {checked} decisive tokens equal")
+    engines[policy] = engine
+  return engines
+
+
+def _profiled(step, steps: int):
+  """(wall ms per step, [(device ms per step, launches per step, kernel)])
+  of `steps` calls of `step` under `torch.profiler`."""
   from torch.profiler import ProfilerActivity, profile
-  steps = 3
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(steps):
+      step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+  rows = []
+  for e in prof.key_averages():
+    # kernel rows only: a CPU op's self device time repeats its kernels'
+    if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
+      rows.append((e.self_device_time_total / steps / 1e3,
+                   e.count / steps, e.key))
+  return wall_ms, rows
+
+
+def profile_steps(step, tag, label, steps: int = 3) -> None:
+  """Where a decode step's time goes: device busy share and top kernels.
+  A trace that comes back without device events is taken once more."""
+  step()          # warm
+  torch.cuda.synchronize()
+  wall_ms, rows = _profiled(step, steps)
+  if not rows:
+    wall_ms, rows = _profiled(step, steps)
+  busy = sum(r[0] for r in rows)
+  if not rows:
+    print(f"{tag} profile {label}: the profiler saw no device time "
+          f"(not measured)")
+    return
+  print(f"{tag} profile {label}: step {wall_ms:.3f} ms (profiled), "
+        f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
+        f"{sum(r[1] for r in rows):.0f} kernels per step")
+  for ms, count, name in sorted(rows, reverse=True)[:8]:
+    print(f"{tag}   {ms:.4f} ms/step  {count:.0f}x  {name[:90]}")
+
+
+def profile_phase(models, engines, tag) -> None:
+  """A contiguous decode step (`Model.decode_step`) and a paged engine step
+  (`layout.decode` + the engine's argmax and copy to the host)."""
   for policy, (run, model) in models.items():
     prompts = run.prompts(model.cfg.vocab_size).to(model.device)
     logits, cache = model.prefill(prompts)
     tok = torch.argmax(logits, -1)
     lengths = torch.full((BATCH,), PROMPT, dtype=torch.int32,
                          device=model.device)
-    model.decode_step(tok, cache, lengths)          # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      t0 = time.perf_counter()
-      for _ in range(steps):
-        model.decode_step(tok, cache, lengths)
-      torch.cuda.synchronize()
-      wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rows = []
-    for e in prof.key_averages():
-      # kernel rows only: a CPU op's self device time repeats its kernels'
-      if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
-        rows.append((e.self_device_time_total / steps / 1e3,
-                     e.count / steps, e.key))
-    busy = sum(r[0] for r in rows)
-    if not rows:
-      print(f"{tag} profile {policy}: the profiler saw no device time "
-            f"(not measured)")
-      continue
-    print(f"{tag} profile {policy}: step {wall_ms:.3f} ms (profiled), "
-          f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
-          f"{sum(r[1] for r in rows):.0f} kernels per step")
-    for ms, count, name in sorted(rows, reverse=True)[:8]:
-      print(f"{tag}   {ms:.4f} ms/step  {count:.0f}x  {name[:90]}")
+    profile_steps(lambda: model.decode_step(tok, cache, lengths), tag,
+                  f"{policy} contiguous")
+    del cache
+  for policy, engine in engines.items():
+    layout = engine.layout
+    profile_steps(lambda: torch.argmax(
+        layout.decode(engine._cur, engine._lengths), -1).cpu(), tag,
+        f"{policy} paged block-native")
 
 
 def main() -> int:
@@ -327,19 +628,25 @@ def main() -> int:
 
   t0 = time.monotonic()
   kernels = kernel_phase(dev, tag)
+  kernels.update(paged_kernel_phase(dev, tag))
   print(f"{tag} kernel phase {time.monotonic() - t0:.2f} s")
   t0 = time.monotonic()
-  models = serve_phase(dev, tag)
+  models, serve_launches = serve_phase(dev, tag)
   print(f"{tag} serve phase {time.monotonic() - t0:.2f} s")
-  from repro_torch.kernels import paged_flash_decode as pfd
-  from repro_torch.kernels import pq_decode as pqd
-  kernels["pq_decode_attention"]["launches"] = pqd.pq_decode_attention.launches
-  kernels["flash_decode"]["launches"] = pfd.flash_decode.launches
+  t0 = time.monotonic()
+  engine_launches = engine_phase(tag)
+  print(f"{tag} engine phase {time.monotonic() - t0:.2f} s")
+  # each kernel's launches on the path that runs it
+  for name in ("pq_decode_attention", "flash_decode"):
+    kernels[name]["launches"] = serve_launches[name]
+  for name in ("pq_decode_attention_paged", "paged_flash_decode"):
+    kernels[name]["launches"] = engine_launches[name]
   t0 = time.monotonic()
   parity_phase(models, tag)
+  engines = paged_parity_phase(tag)
   print(f"{tag} parity phase {time.monotonic() - t0:.2f} s")
   t0 = time.monotonic()
-  profile_phase(models, tag)
+  profile_phase(models, engines, tag)
   print(f"{tag} profile phase {time.monotonic() - t0:.2f} s")
 
   print(json.dumps({"kernels": list(kernels.values())}))

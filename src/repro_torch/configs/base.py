@@ -148,6 +148,8 @@ class ModelConfig:
     spec = cache_api.CacheSpec(
         capacity=context_len, head_dim=self.head_dim, dtype=self.dtype,
         sink=self.pq_sink, recent=self.pq_recent,
+        block=(self.kv_block_size
+               if self.cache_layout in ("paged", "tiered") else 0),
         decode_kernel=self.decode_kernel, device=str(device),
         pq=self.pq_cache_config(context_len) if name == "pq" else None)
     return cache_registry.make(name, spec)

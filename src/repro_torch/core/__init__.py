@@ -1,1 +1,2 @@
-"""AQPIM core: PQ math, importance weights, KV caches and cache policies."""
+"""AQPIM core: PQ math, importance weights, KV caches, cache policies and
+cache layouts."""

@@ -1,11 +1,15 @@
 """Unified `CachePolicy` API (port of `repro.core.cache_api`, the `exact` and
-`pq` policies on the contiguous layout).
+`pq` policies).
 
 Every policy implements:
 
     init(b, h, d)                                       -> state
     prefill(k, v, weights, lengths)                     -> state
     append_and_attend(state, q, k_new, v_new, lengths)  -> (out, state)
+
+and, as a codec over a paged layout (`core.cache_layout.PagedLayout`):
+`paged_axes`, `paged_capacity`, `token_extent`, `pinned_tokens`,
+`dead_below`, and (where `block_native`) `append_and_attend_paged`.
 
 Shapes: k/v (B, H, N, D); q (B, Hq, D) with GQA groups folded into Hq;
 `lengths` (B,) int32 per request; `weights` (B, H, N) are the Eq. 1
@@ -37,6 +41,7 @@ class CacheSpec:
   dtype: torch.dtype = torch.bfloat16
   sink: int = 8              # exact sink tokens (paper §IV-A)
   recent: int = 32           # exact recent window (= t of Eq. 1)
+  block: int = 0             # paged-layout token-block size (0 = contiguous)
   decode_kernel: str = "auto"  # core.decode_dispatch key: torch | cuda | auto
   device: str = "cpu"
   pq: Optional[kvc.PQCacheConfig] = None   # aqpim geometry (policy "pq")
@@ -47,15 +52,37 @@ class CacheSpec:
     if self.sink < 0 or self.recent < 0:
       raise ValueError(
           f"sink/recent must be >= 0, got ({self.sink}, {self.recent})")
+    if self.block < 0:
+      raise ValueError(f"block must be >= 0, got {self.block}")
     decode_dispatch.validate(self.decode_kernel)
+    if self.block and self.capacity % self.block:
+      raise ValueError(
+          f"capacity {self.capacity} not divisible by block size "
+          f"{self.block} (paged layouts need whole token blocks)")
+    if (self.block and self.pq is not None
+        and self.pq.body_capacity % self.block):
+      raise ValueError(
+          f"pq body_capacity {self.pq.body_capacity} not divisible by "
+          f"block size {self.block}")
 
   @staticmethod
   def sm_scale(d: int) -> float:
     return float(d) ** -0.5
 
 
+# Sentinel for `CachePolicy.paged_axes`: the leaf has no token axis and stays
+# resident per slot (never paged).
+RESIDENT = -1
+
+
 class CachePolicy:
-  """Base class; subclasses register themselves under a string key."""
+  """Base class; subclasses register themselves under a string key.
+
+  Beyond the storage methods, a policy is a codec over a layout: it says
+  which leaves of its state carry a token axis (`paged_axes`) and how many
+  paged tokens a cached length occupies (`token_extent`), so `PagedLayout`
+  can page any policy's state without knowing its internals.
+  """
   name: str = "base"
   needs_weights: bool = False
 
@@ -74,6 +101,14 @@ class CachePolicy:
     """What runs this policy's decode attention: 'cuda' or 'torch'."""
     return "cuda" if self.use_kernel else "torch"
 
+  @property
+  def block_native(self) -> bool:
+    """Can the paged decode step read pool storage in place (no dense
+    gather)?  True exactly when the policy runs its kernel; pooled layouts
+    pick the block-native program or the dense gather->decode->scatter one
+    from this."""
+    return False
+
   def init(self, b: int, h: int, d: int) -> Any:
     raise NotImplementedError
 
@@ -83,6 +118,46 @@ class CachePolicy:
   def append_and_attend(self, state, q, k_new, v_new, lengths
                         ) -> Tuple[torch.Tensor, Any]:
     raise NotImplementedError
+
+  # -- paged-layout codec surface -------------------------------------------
+  def paged_axes(self):
+    """NamedTuple matching one batched state (leading dim B): per leaf, the
+    token-axis index, or RESIDENT for fixed-size leaves (codebooks, rings)."""
+    raise NotImplementedError(
+        f"{type(self).__name__} does not describe a paged layout")
+
+  def paged_capacity(self) -> int:
+    """Size of the paged token axis (the dense buffer the codec attends on)."""
+    return self.spec.capacity
+
+  def token_extent(self, length: int) -> int:
+    """Paged tokens that must be resident when `length` tokens are cached."""
+    return min(length, self.paged_capacity())
+
+  def pinned_tokens(self) -> int:
+    """Leading paged tokens that may never be reclaimed (attention sinks)."""
+    return 0
+
+  def dead_below(self, length: int) -> int:
+    """Paged-token positions < this are evicted by the policy's own masking
+    and may be reclaimed (ring-reuse); 0 means nothing is reclaimable."""
+    del length
+    return 0
+
+  def append_and_attend_paged(self, resident_leaves, pool_leaves, layer: int,
+                              tables, q, k_new, v_new, lengths):
+    """Block-table-native decode step over pooled storage.
+
+    `resident_leaves` / `pool_leaves` are the state's leaves (paged_axes
+    order) with the other kind's entries None: resident leaves carry this
+    layer's per-slot state (B, ...), pool leaves the physical pools
+    (P+1, L, ..., block, ...) shared across layers, written in place;
+    `layer` is a Python int, `tables` the (B, nb) int32 block tables.
+    Returns (out (B, Hq, D), resident_leaves, pool_leaves) with the same None
+    pattern.  Only policies with `block_native` implement this.
+    """
+    raise NotImplementedError(
+        f"{type(self).__name__} has no block-native decode step")
 
   def __repr__(self) -> str:
     return f"{type(self).__name__}(capacity={self.spec.capacity})"
@@ -94,6 +169,10 @@ class ExactPolicy(CachePolicy):
 
   With the `cuda` dispatch the step runs the flash-decode kernel (K2).
   """
+
+  @property
+  def block_native(self) -> bool:
+    return self.use_kernel
 
   def init(self, b: int, h: int, d: int):
     return kvc.exact_cache_init(b, h, self.spec.capacity, d, self.spec.dtype,
@@ -110,6 +189,18 @@ class ExactPolicy(CachePolicy):
           state, q, k_new, v_new, lengths, scale)
     return kvc.exact_cache_append_and_attend(state, q, k_new, v_new, lengths,
                                              scale)
+
+  def paged_axes(self):
+    # k/v (B, H, N, D): token axis 2
+    return kvc.ExactLayerCache(k=2, v=2)
+
+  def append_and_attend_paged(self, resident_leaves, pool_leaves, layer,
+                              tables, q, k_new, v_new, lengths):
+    k_pool, v_pool = pool_leaves
+    out, k_pool, v_pool = kvc.exact_cache_paged_step(
+        k_pool, v_pool, layer, tables, q, k_new, v_new, lengths,
+        self.spec.sm_scale(q.shape[-1]))
+    return out, list(resident_leaves), [k_pool, v_pool]
 
 
 @cache_registry.register("pq")
@@ -138,6 +229,10 @@ class PQPolicy(CachePolicy):
           f"{spec.pq.n_windows}; use decode kernel 'torch'")
     self.pq_cfg = spec.pq
 
+  @property
+  def block_native(self) -> bool:
+    return self.use_kernel
+
   def init(self, b: int, h: int, d: int):
     return kvc.pq_cache_init(b, h, d, self.pq_cfg, self.spec.dtype,
                              self.spec.device)
@@ -165,3 +260,34 @@ class PQPolicy(CachePolicy):
     pq = self.pq_cfg.pq
     return "reconstruct" if pq.m * pq.k >= 16 * self.spec.head_dim else \
         "bucket"
+
+  def append_and_attend_paged(self, resident_leaves, pool_leaves, layer,
+                              tables, q, k_new, v_new, lengths):
+    sink_k, sink_v, recent_k, recent_v, kcb, vcb, _, _ = resident_leaves
+    kip, vip = pool_leaves[6:]
+    (out, sink_k, sink_v, recent_k, recent_v, kip, vip) = \
+        kvc.pq_cache_paged_step(
+            sink_k, sink_v, recent_k, recent_v, kcb, vcb, kip, vip, layer,
+            tables, q, k_new, v_new, lengths, self.pq_cfg,
+            self.spec.sm_scale(q.shape[-1]))
+    return (out,
+            [sink_k, sink_v, recent_k, recent_v, kcb, vcb, None, None],
+            [None, None, None, None, None, None, kip, vip])
+
+  def paged_axes(self):
+    # only the per-token PQ codes page; sink/recent rings and the codebooks
+    # are fixed-size per request and stay resident
+    return kvc.PQLayerCache(
+        sink_k=RESIDENT, sink_v=RESIDENT,
+        recent_k=RESIDENT, recent_v=RESIDENT,
+        key_codebooks=RESIDENT, value_codebooks=RESIDENT,
+        key_indices=2, value_indices=2)
+
+  def paged_capacity(self) -> int:
+    return self.pq_cfg.body_capacity
+
+  def token_extent(self, length: int) -> int:
+    # body offsets are positions [sink, length - recent): the sink/recent
+    # tokens live in the resident rings, not in paged storage
+    used = length - self.pq_cfg.sink - self.pq_cfg.recent
+    return min(max(used, 0), self.pq_cfg.body_capacity)

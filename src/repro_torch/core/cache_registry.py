@@ -1,22 +1,25 @@
-"""String-keyed registry of KV-cache policies (port of
-`repro.core.cache_registry`, policies only; the layout namespace arrives
-with the paged layout, ROADMAP A6).
+"""String-keyed registries of KV-cache policies and cache layouts (port of
+`repro.core.cache_registry`).
 
     from repro_torch.core import cache_registry
     policy = cache_registry.make("pq", spec)
+    layout = cache_registry.make_layout("paged", model, max_batch)
 
-This slice registers `exact` and `pq`.  The reference's other keys raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+Policies `exact` and `pq` and layouts `contiguous` and `paged` are
+registered.  The reference's other keys raise `NotImplementedError` naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
 _REGISTRY: Dict[str, type] = {}
+_LAYOUTS: Dict[str, type] = {}
 
 _UNPORTED = {
     "skvq": "A8", "snapkv": "A8", "streamingllm": "A8", "pqcache": "A8",
 }
+_UNPORTED_LAYOUTS = {"tiered": "A9"}
 
 
 def register(name: str) -> Callable[[type], type]:
@@ -56,3 +59,46 @@ def names() -> Tuple[str, ...]:
 def _ensure_builtin() -> None:
   # registration happens at class definition; importing cache_api is enough
   from repro_torch.core import cache_api  # noqa: F401  (cycle-safe: lazy)
+
+
+# ---------------------------------------------------------------------------
+# cache layouts
+# ---------------------------------------------------------------------------
+
+def register_layout(name: str) -> Callable[[type], type]:
+  """Class decorator: `@register_layout("paged") class PagedLayout(...)`."""
+  def deco(cls: type) -> type:
+    if name in _LAYOUTS and _LAYOUTS[name] is not cls:
+      raise ValueError(f"cache layout {name!r} already registered")
+    _LAYOUTS[name] = cls
+    cls.name = name
+    return cls
+  return deco
+
+
+def get_layout(name: str) -> type:
+  _ensure_builtin_layouts()
+  if name in _UNPORTED_LAYOUTS:
+    raise NotImplementedError(
+        f"cache layout {name!r} is not ported to repro_torch yet (ROADMAP "
+        f"{_UNPORTED_LAYOUTS[name]})")
+  try:
+    return _LAYOUTS[name]
+  except KeyError:
+    raise KeyError(
+        f"unknown cache layout {name!r}; available: {layout_names()}"
+    ) from None
+
+
+def make_layout(name: str, model, max_batch: int, **kwargs):
+  """Instantiate the layout registered under `name` for a built Model."""
+  return get_layout(name)(model, max_batch, **kwargs)
+
+
+def layout_names() -> Tuple[str, ...]:
+  _ensure_builtin_layouts()
+  return tuple(sorted(_LAYOUTS))
+
+
+def _ensure_builtin_layouts() -> None:
+  from repro_torch.core import cache_layout  # noqa: F401  (cycle-safe: lazy)

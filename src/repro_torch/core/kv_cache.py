@@ -1,8 +1,7 @@
-"""KV-cache structures, contiguous layout: exact and PQ-compressed (AQPIM
-§III-A/H layout).
+"""KV-cache structures: exact and PQ-compressed (AQPIM §III-A/H layout).
 
-Port of the contiguous parts of `repro.core.kv_cache`.  PQ cache layout per
-layer:
+Port of `repro.core.kv_cache` (contiguous and paged layouts; the packed
+exact store is ROADMAP A7).  PQ cache layout per layer:
 
   [ sink (exact) | PQ body (codebooks + per-token indices) | recent ring (exact) ]
 
@@ -12,8 +11,10 @@ Codebooks stay fixed after prefill.
 
 Every function takes the batch written out (leading B) in place of the
 reference's `vmap` over requests; per-request `lengths` (B,) let rows sit at
-different positions.  Updates are functional (new tensors, inputs untouched),
-as in the reference, so one prefilled cache can feed several decode runs.
+different positions.  Updates of per-slot state are functional (new
+tensors, inputs untouched), as in the reference, so one prefilled cache can
+feed several decode runs.  The paged steps are the exception: they write
+their rows into the shared block pools in place (see `pq_cache_paged_step`).
 """
 from __future__ import annotations
 
@@ -31,6 +32,55 @@ def as_lengths(length, b: int, device=None) -> torch.Tensor:
   if ln.dim() == 0:
     return ln.expand(b).clone()
   return ln.reshape(b)
+
+
+# ---------------------------------------------------------------------------
+# Block-indexed storage primitives (paged KV memory)
+#
+# A paged cache stores a token-axis leaf as fixed-size blocks in a shared
+# physical pool; a per-request block table maps logical token-block j to a
+# physical pool block.  `core.cache_layout.PagedLayout` builds on these.
+# ---------------------------------------------------------------------------
+
+def blockify(x: torch.Tensor, axis: int, block: int) -> torch.Tensor:
+  """Split token axis `axis` of a dense leaf into leading blocks:
+  (..., N, ...) with N = nb*block -> (nb, ..., block, ...)."""
+  n = x.shape[axis]
+  if n % block:
+    raise ValueError(f"token axis {n} not divisible by block {block}")
+  x = x.reshape(x.shape[:axis] + (n // block, block) + x.shape[axis + 1:])
+  return torch.movedim(x, axis, 0)
+
+
+def unblockify(blocks: torch.Tensor, axis: int) -> torch.Tensor:
+  """Inverse of `blockify`: (nb, ..., block, ...) -> dense (..., N, ...)."""
+  x = torch.movedim(blocks, 0, axis)
+  return x.reshape(x.shape[:axis] + (x.shape[axis] * x.shape[axis + 1],)
+                   + x.shape[axis + 2:])
+
+
+def gather_blocks(pool: torch.Tensor, table: torch.Tensor,
+                  axis: int) -> torch.Tensor:
+  """One request's dense leaf view from the physical pool.
+
+  pool (P+1, ...block leaf...) indexed by table (nb,) -> dense leaf whose
+  token axis sits at `axis`.  Unallocated logical blocks point at the trash
+  block; their rows land at positions >= the request's length and are
+  masked inside every policy's attend path.
+  """
+  return unblockify(pool[table.long()], axis)
+
+
+def scatter_blocks(pool: torch.Tensor, table: torch.Tensor,
+                   dense: torch.Tensor, axis: int) -> torch.Tensor:
+  """Write a request's dense leaf back into its pool blocks (inverse of
+  `gather_blocks`), in place: the pool is shared storage, and a functional
+  copy of it per write would cost the whole pool.  Duplicate table entries
+  only ever aim at the trash block, whose content is never read.  Returns
+  `pool`."""
+  block = pool.shape[axis + 1]
+  pool[table.long()] = blockify(dense, axis, block).to(pool.dtype)
+  return pool
 
 
 class PQCacheConfig(NamedTuple):
@@ -421,3 +471,80 @@ def pq_cache_append_and_attend_kernel(cache: PQLayerCache, q, k_new, v_new,
       value_codebooks=cache.value_codebooks,
       key_indices=key_indices, value_indices=value_indices)
   return out.reshape(b, hq, d), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Block-table-native decode steps (paged layout)
+# ---------------------------------------------------------------------------
+
+def pq_cache_paged_step(sink_k, sink_v, recent_k, recent_v, key_codebooks,
+                        value_codebooks, key_index_pool, value_index_pool,
+                        layer: int, tables, q, k_new, v_new, length,
+                        cfg: PQCacheConfig, scale: float):
+  """Block-table-native PQ decode step: pools read in place, one row written.
+
+  Rings (B, H, S0|R, D), codebooks (B, H, nW, m, K, dsub); index pools
+  (P+1, L, H, block, m) narrow int shared by every layer; `layer` a Python
+  int; tables (B, nb) int32 (trash = P); q (B, Hq, D), k_new/v_new (B, H, D).
+  Returns (out (B, Hq, D), updated rings..., the pools).
+
+  The evicted ring entry's encoded indices land directly in pool block
+  tables[b, ev // block] of plane `layer`, written in place with
+  `index_put_` (no copy of the pool, unlike the reference's functional
+  `.at[].set`).  Rows that evict nothing, and inactive slots, aim at the
+  trash block; their duplicate indices there are harmless only because the
+  trash block is never read, so the write must not accumulate.  The body
+  kernel (K3) then streams exactly the table-mapped blocks.
+  """
+  if cfg.n_windows != 1:
+    raise ValueError("the kernel path requires a single codebook window")
+  b, hq, d = q.shape
+  h = recent_k.shape[1]
+  block = key_index_pool.shape[3]
+  trash = key_index_pool.shape[0] - 1
+  lengths = as_lengths(length, b, q.device)
+  step = _pq_ring_step(sink_k, sink_v, recent_k, recent_v, key_codebooks,
+                       value_codebooks, k_new, v_new, lengths, cfg)
+
+  rows_b = torch.arange(b, device=q.device)
+  pids = torch.where(step.do_evict, tables.long()[rows_b, step.ev // block],
+                     torch.full_like(step.ev, trash))
+  rows = step.ev % block
+  key_index_pool[pids, layer, :, rows] = step.k_idx_new.to(
+      key_index_pool.dtype)
+  value_index_pool[pids, layer, :, rows] = step.v_idx_new.to(
+      value_index_pool.dtype)
+
+  qg = q.reshape(b, h, hq // h, d)
+  body = kops.pq_decode_attention_paged(
+      qg, key_codebooks[:, :, 0], value_codebooks[:, :, 0], key_index_pool,
+      value_index_pool, tables, layer, step.body_len, scale)
+  out = _pq_segments_combine(
+      qg, (step.sink_mask, step.rec_mask), step.sink_k, step.sink_v,
+      step.recent_k, step.recent_v, body, scale)
+  return (out.reshape(b, hq, d), step.sink_k, step.sink_v, step.recent_k,
+          step.recent_v, key_index_pool, value_index_pool)
+
+
+def exact_cache_paged_step(k_pool, v_pool, layer: int, tables, q, k_new,
+                           v_new, length, scale: float):
+  """Block-table-native exact decode step: insert one row, attend in place.
+
+  Pools (P+1, L, H, block, D); tables (B, nb) int32.  The new row lands at
+  pool block tables[b, length // block], row length % block, of plane
+  `layer`, written in place (`index_put_`, not accumulating; an inactive
+  slot's table is all trash, so its row aims at the trash block, which is
+  never read).  Returns (out (B, Hq, D), k_pool, v_pool).
+  """
+  b, hq, d = q.shape
+  h = k_pool.shape[2]
+  block = k_pool.shape[3]
+  lengths = as_lengths(length, b, q.device)
+  ln = lengths.long()
+  pids = tables.long()[torch.arange(b, device=q.device), ln // block]
+  rows = ln % block
+  k_pool[pids, layer, :, rows] = k_new.to(k_pool.dtype)
+  v_pool[pids, layer, :, rows] = v_new.to(v_pool.dtype)
+  out = kops.paged_flash_decode(q.reshape(b, h, hq // h, d), k_pool, v_pool,
+                                tables, layer, lengths + 1, scale)
+  return out.reshape(b, hq, d), k_pool, v_pool

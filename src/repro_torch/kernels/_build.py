@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` compiles with `nvcc` into a shared library with a
 plain C interface (`-gencode arch=compute_90a,code=sm_90a`), loaded through
 `ctypes`.  Libraries land in `build/repro_torch/` at the repository root,
-named by a hash of the source and flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing builds at import time: a wrapper asks for
+named by a hash of the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  Nothing builds at import time: a wrapper asks for
 its library when it first launches, and `build_all` compiles every source in
 parallel (one `nvcc` each, all started together).
 """
@@ -22,7 +23,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("pq_decode", "flash_decode")
+SOURCES = ("pq_decode", "flash_decode", "pq_decode_paged",
+           "paged_flash_decode")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -38,6 +40,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
   src = (CSRC / f"{name}.cu").read_bytes()
+  src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
   digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
   return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -86,7 +89,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path(name)))
     _LOADED[name] = lib
   return lib
-
 
 
 _CHECKED_DEVICES = set()

@@ -1,9 +1,12 @@
 """Batched wrappers around the decode kernels, in the layouts the caches use.
 
-Port of the contiguous-layout part of `repro/kernels/ops.py`: each wrapper
-folds (batch, kv head) into the kernels' BH axis and unfolds the result.
-The kernel modules decide per device: plain PyTorch on CPU tensors, the CUDA
-kernel on CUDA tensors.
+Port of `repro/kernels/ops.py` (dense and block-table-native decode): each
+wrapper folds (batch, kv head) into the kernels' BH axis and unfolds the
+result.  The block-table-native wrappers pass the (B, nb) tables and (B,)
+lengths through as they are: the kernels read row bh's request as bh // H
+and its head as bh % H, as the reference's `jnp.repeat(tables, h, axis=0)`
+plus `bh % n_heads` do.  The kernel modules decide per device: plain
+PyTorch on CPU tensors, the CUDA kernel on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -43,6 +46,34 @@ def pq_decode_attention(
   return out, stats[:, :, 0], stats[:, :, 1]
 
 
+def pq_decode_attention_paged(
+    q: torch.Tensor,               # (B, H_kv, g, d)
+    key_codebook: torch.Tensor,    # (B, H_kv, m, K, dsub)
+    value_codebook: torch.Tensor,  # (B, H_kv, m, K, dsub)
+    key_index_pool: torch.Tensor,  # (P+1, L, H_kv, blk, m) narrow int
+    value_index_pool: torch.Tensor,
+    tables: torch.Tensor,          # (B, nb) int32 per-slot block tables
+    layer: int,
+    length: torch.Tensor,          # (B,) valid body tokens
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """Block-table-native PQ body attention (no dense index view is built).
+  Same return contract as `pq_decode_attention`: (out, max, denom) per
+  (B, H, g)."""
+  b, h, g, d = q.shape
+  bh = b * h
+  m, k_cent, dsub = key_codebook.shape[2:]
+  out, stats = _pqd.pq_decode_attention_paged(
+      q.reshape(bh, g, d).contiguous(),
+      key_codebook.reshape(bh, m, k_cent, dsub).contiguous(),
+      value_codebook.reshape(bh, m, k_cent, dsub).contiguous(),
+      key_index_pool, value_index_pool, tables.to(torch.int32).contiguous(),
+      layer, length.to(torch.int32).contiguous(), scale)
+  out = out.reshape(b, h, g, d)
+  stats = stats.reshape(b, h, 2, g)
+  return out, stats[:, :, 0], stats[:, :, 1]
+
+
 def flash_decode(
     q: torch.Tensor,        # (B, H_kv, g, d)
     k: torch.Tensor,        # (B, H_kv, N, d)
@@ -58,6 +89,24 @@ def flash_decode(
       q.reshape(b * h, g, d).contiguous(),
       k.reshape(b * h, n, d).contiguous(), v.reshape(b * h, n, d).contiguous(),
       length, scale)
+  return out.reshape(b, h, g, d)
+
+
+def paged_flash_decode(
+    q: torch.Tensor,        # (B, H_kv, g, d)
+    k_pool: torch.Tensor,   # (P+1, L, H_kv, blk, d)
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,   # (B, nb) int32
+    layer: int,
+    length: torch.Tensor,   # (B,) valid tokens per request
+    scale: float,
+) -> torch.Tensor:
+  """Block-table-native flash decode over pooled K/V (exact policy)."""
+  b, h, g, d = q.shape
+  out = _pfd.paged_flash_decode(
+      q.reshape(b * h, g, d).contiguous(), k_pool, v_pool,
+      tables.to(torch.int32).contiguous(), layer,
+      length.to(torch.int32).contiguous(), scale)
   return out.reshape(b, h, g, d)
 
 

@@ -1,16 +1,21 @@
-"""K1: PQ decode attention on compressed KV, over dense index buffers.
+"""K1 and K3: PQ decode attention on compressed KV.
 
-Port of `repro/kernels/pq_decode.py::pq_decode_attention_kernel` (the
-contiguous-layout PQ body kernel).  `pq_decode_attention` is the wrapper: a
-CPU tensor takes the plain version `pq_decode_attention_plain`; a CUDA
-tensor launches the kernel in `csrc/pq_decode.cu` (its header says what
-bounds it on the H100 and how its design answers that) or raises.  There is
-no fallback from the kernel to the plain version.
+K1, `pq_decode_attention`, ports `repro/kernels/pq_decode.py::
+pq_decode_attention_kernel` (dense index buffers, the contiguous layout);
+K3, `pq_decode_attention_paged`, ports `pq_decode_attention_paged_kernel`
+(index pages read in place from the paged layout's pool through block
+tables).  Each wrapper takes its plain version (`*_plain`) for a CPU tensor,
+and for a CUDA tensor launches its kernel (`csrc/pq_decode.cu`,
+`csrc/pq_decode_paged.cu`; their headers say what bounds them on the H100
+and how their design answers that) or raises.  There is no fallback from a
+kernel to its plain version.
 
-Shapes, as the TPU kernel (`BH` = batch * kv heads):
+Shapes, as the TPU kernels (`BH` = batch * kv heads):
   q (BH, g, d) bf16 or f32; key/value codebooks (BH, m, K, dsub) as stored
-  (bf16 for the kernel); key/value indices (BH, N, m) uint8, int16 or int32,
-  read in their storage width; length (BH,) int32 valid body tokens.
+  (bf16 for the kernels); indices read in their storage width (uint8, int16
+  or int32): K1 (BH, N, m) with length (BH,) int32 valid body tokens; K3
+  pools (P+1, L, H, blk, m) with tables (B, nb) int32, a Python-int layer and
+  length (B,) int32, row bh reading request bh // H and head bh % H.
 Returns (out (BH, g, d) f32 normalised, stats (BH, 2, g) f32 = [max, denom]).
 """
 from __future__ import annotations
@@ -138,3 +143,130 @@ def pq_decode_attention(q, key_codebook, value_codebook, key_indices,
 
 
 pq_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: index pages read in place from the block pool
+# ---------------------------------------------------------------------------
+
+def pq_decode_attention_paged_plain(q, key_codebook, value_codebook,
+                                    key_index_pool, value_index_pool, tables,
+                                    layer: int, length, scale: float
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Plain PyTorch version of K3: gather the table-mapped pages of plane
+  `layer` into a dense (BH, nb * blk, m) view and run K1's plain version."""
+  n_heads = key_index_pool.shape[2]
+
+  def dense(pool):
+    pages = pool[:, layer][tables.long()]          # (B, nb, H, blk, m)
+    b, nb, h, blk, m = pages.shape
+    return pages.permute(0, 2, 1, 3, 4).reshape(b * h, nb * blk, m)
+  return pq_decode_attention_plain(
+      q, key_codebook, value_codebook, dense(key_index_pool),
+      dense(value_index_pool), length.repeat_interleave(n_heads), scale)
+
+
+def _lib_paged() -> ctypes.CDLL:
+  lib = _build.load("pq_decode_paged")
+  fn = lib.pq_decode_paged_launch
+  fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+  fn.restype = ctypes.c_int
+  lib.pq_decode_paged_smem_bytes.argtypes = [ctypes.c_int] * 4
+  lib.pq_decode_paged_smem_bytes.restype = ctypes.c_size_t
+  lib.pq_decode_paged_max_g.restype = ctypes.c_int
+  lib.pq_decode_paged_max_outputs.restype = ctypes.c_int
+  return lib
+
+
+def check_paged(name: str, bh: int, pools, tables, layer, length) -> None:
+  """Shape rules shared by the block-table-native wrappers (K3, K4):
+  pools (P+1, L, H, blk, w) of one shape, tables (B, nb) with B * H = BH,
+  length (B,), a Python-int layer in [0, L)."""
+  if isinstance(layer, torch.Tensor):
+    raise TypeError(f"{name}: layer must be a Python int, not a tensor "
+                    f"(reading a device scalar would sync the host)")
+  if pools[0].dim() != 5 or any(p.shape != pools[0].shape for p in pools):
+    raise ValueError(f"{name}: pools must share one (P+1, L, H, blk, w) "
+                     f"shape, got {[tuple(p.shape) for p in pools]}")
+  _, n_layers, n_heads, _, _ = pools[0].shape
+  if tables.dim() != 2 or tables.shape[0] * n_heads != bh:
+    raise ValueError(f"{name}: tables {tuple(tables.shape)} must be (B, nb) "
+                     f"with B * {n_heads} heads = {bh} rows")
+  if tuple(length.shape) != (tables.shape[0],):
+    raise ValueError(f"{name}: length {tuple(length.shape)} != "
+                     f"({tables.shape[0]},)")
+  if not 0 <= int(layer) < n_layers:
+    raise ValueError(f"{name}: layer {layer} not in [0, {n_layers})")
+  if pools[0].dtype != pools[-1].dtype:
+    raise TypeError(f"{name}: pools must share a dtype")
+
+
+def pq_decode_attention_paged(q, key_codebook, value_codebook,
+                              key_index_pool, value_index_pool, tables,
+                              layer: int, length, scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """K3 wrapper: plain version on CPU tensors, the CUDA kernel on CUDA
+  tensors (or an error).  Counts its kernel launches in `.launches`."""
+  bh, g, d = q.shape
+  pools = (key_index_pool, value_index_pool)
+  check_paged("K3", bh, pools, tables, layer, length)
+  _, _, n_heads, blk, m = key_index_pool.shape
+  if key_codebook.dim() != 4 or key_codebook.shape[:2] != (bh, m) or \
+      value_codebook.shape != key_codebook.shape:
+    raise ValueError(f"codebooks {tuple(key_codebook.shape)}, "
+                     f"{tuple(value_codebook.shape)} must be (BH={bh}, m={m}, "
+                     f"K, dsub)")
+  k_cent, dsub = key_codebook.shape[2:]
+  if m * dsub != d:
+    raise ValueError(f"m*dsub = {m}*{dsub} != head dim {d}")
+  if q.device.type == "cpu":
+    return pq_decode_attention_paged_plain(
+        q, key_codebook, value_codebook, key_index_pool, value_index_pool,
+        tables, layer, length, scale)
+  tensors = (q, key_codebook, value_codebook, key_index_pool,
+             value_index_pool, tables, length)
+  if any(t.device != q.device for t in tensors):
+    raise ValueError("all K3 inputs must be on one device")
+  _build.require_sm90(q.device)
+  if q.dtype not in _Q_CODES:
+    raise TypeError(f"q must be bf16 or f32, got {q.dtype}")
+  if key_codebook.dtype != torch.bfloat16 or \
+      value_codebook.dtype != torch.bfloat16:
+    raise TypeError("the kernel reads bf16 codebooks (their storage type)")
+  if key_index_pool.dtype not in _IDX_CODES:
+    raise TypeError(f"index pools must be uint8, int16 or int32, got "
+                    f"{key_index_pool.dtype}")
+  if tables.dtype != torch.int32 or length.dtype != torch.int32:
+    raise TypeError(f"tables and length must be int32, got {tables.dtype}, "
+                    f"{length.dtype}")
+  if not all(t.is_contiguous() for t in tensors):
+    raise ValueError("K3 inputs must be contiguous")
+  lib = _lib_paged()
+  if g > lib.pq_decode_paged_max_g() or \
+      g * d > lib.pq_decode_paged_max_outputs():
+    raise ValueError(f"K3 takes g <= {lib.pq_decode_paged_max_g()} and g*d "
+                     f"<= {lib.pq_decode_paged_max_outputs()}, got g={g}, "
+                     f"d={d}")
+  smem = lib.pq_decode_paged_smem_bytes(g, d, m, k_cent)
+  if smem > SMEM_LIMIT:
+    raise ValueError(f"K3 needs {smem} B of shared memory for m={m}, "
+                     f"K={k_cent}, d={d}, g={g}; a block has {SMEM_LIMIT}")
+  out = torch.empty((bh, g, d), dtype=torch.float32, device=q.device)
+  stats = torch.empty((bh, 2, g), dtype=torch.float32, device=q.device)
+  err = lib.pq_decode_paged_launch(
+      _Q_CODES[q.dtype], _IDX_CODES[key_index_pool.dtype], q.data_ptr(),
+      key_codebook.data_ptr(), value_codebook.data_ptr(),
+      key_index_pool.data_ptr(), value_index_pool.data_ptr(),
+      tables.data_ptr(), length.data_ptr(), out.data_ptr(), stats.data_ptr(),
+      bh, g, d, m, k_cent, n_heads, blk, tables.shape[1],
+      key_index_pool.shape[1], int(layer), float(scale),
+      torch.cuda.current_stream(q.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"pq_decode_attention_paged kernel launch failed: "
+                       f"CUDA error {err}")
+  pq_decode_attention_paged.launches += 1
+  return out, stats
+
+
+pq_decode_attention_paged.launches = 0

@@ -1,8 +1,17 @@
-"""End-to-end serving driver: batched prefill -> cache policy -> decode loop
-(port of `repro.launch.serve.ServeRun`, single device, contiguous layout).
+"""End-to-end serving entry point (port of `repro.launch.serve`, single device).
+
+Fixed batch (`ServeRun`): batched prefill -> cache policy -> decode loop.
 
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --cache-policy pq \
       --batch 4 --prompt-len 1024 --gen 16
+
+Continuous batching (`--engine`, `launch/engine.py`): a warm-up request,
+then `batch + 2` requests of mixed prompt lengths through the engine's
+layout and scheduler.
+
+  python -m repro_torch.launch.serve --arch tinyllama-1.1b --engine \
+      --cache-layout paged --scheduler paged --cache-policy pq \
+      --batch 4 --prompt-len 1024 --gen 32
 
 Runs on the card unless `--device cpu` is given; without a card and without
 that flag it raises.  Weights and prompts are random, made from `--seed`.
@@ -16,6 +25,7 @@ import dataclasses
 import json
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.common.timing import Stopwatch, latency_percentiles_ms
@@ -112,6 +122,102 @@ class ServeRun:
     }
 
 
+def build_engine(args):
+  """The `ServeEngine` the CLI flags describe.  With the paged layout the
+  context (prompt + gen) is rounded up to whole KV blocks, which every
+  paged policy's capacity must be."""
+  from repro_torch.launch.engine import ServeEngine
+  cfg = get_arch(args.arch, reduced=args.reduced)
+  cfg = dataclasses.replace(cfg, cache_policy=args.cache_policy,
+                            cache_layout=args.cache_layout,
+                            scheduler=args.scheduler,
+                            kv_block_size=args.block_size,
+                            decode_kernel=args.decode_kernel)
+  context = args.prompt_len + args.gen
+  if args.cache_layout == "paged":
+    context = -(-context // args.block_size) * args.block_size
+  return ServeEngine(cfg, context_len=context, max_batch=args.batch,
+                     prompt_capacity=args.prompt_len, seed=args.seed,
+                     device=args.device, num_blocks=args.num_blocks)
+
+
+def engine_stats(engine, done=()) -> dict:
+  """Machine-readable engine record: EngineStats.as_dict() plus the layout,
+  scheduler, decode path and kernel, the layout's true footprint, the
+  modeled decode traffic, and each finished request's tokens."""
+  payload = engine.stats.as_dict()
+  payload["layout"] = engine.layout.name
+  payload["scheduler"] = engine.scheduler.name
+  payload["decode_kernel"] = engine.model.cache_policy.effective_decode_kernel
+  payload["layout_bytes"] = engine.layout.bytes(
+      active_slots=engine.active_count)
+  payload["kv_bytes"] = engine.kv_bytes()
+  payload["decode_path"] = "dense"
+  if hasattr(engine.layout, "decode_traffic"):
+    payload["decode_traffic"] = engine.layout.decode_traffic
+    payload["decode_path"] = engine.layout.decode_traffic["decode_path"]
+  payload["device"] = (torch.cuda.get_device_name(engine.model.device)
+                       if engine.model.device.type == "cuda" else "cpu")
+  payload["requests"] = [dict(rid=r.rid, prompt_len=r.prompt_len,
+                              tokens=list(r.tokens),
+                              admitted_step=r.admitted_step,
+                              finished_step=r.finished_step,
+                              preempt_count=r.preempt_count) for r in done]
+  return payload
+
+
+def run_engine_demo(args) -> dict:
+  """Continuous batching: mixed prompt lengths, staggered finishes.  A
+  warm-up request is drained first and the stats reset, so the latency
+  percentiles are steady-state steps."""
+  engine = build_engine(args)
+  cfg = engine.cfg
+  warm_len = min(8, args.prompt_len)
+  engine.submit([1] * warm_len, max_new_tokens=2)
+  engine.run_to_completion()
+  warmup_steps = engine.stats.decode_steps
+  engine.reset_stats()
+  rng = np.random.default_rng(args.seed)
+  floor = min(8, args.prompt_len)
+  max_new = max(1, min(args.gen, max(2, args.gen // 2)))
+  for i in range(args.batch + 2):
+    ln = max(floor, args.prompt_len - 17 * i)
+    engine.submit(rng.integers(0, cfg.vocab_size, size=ln),
+                  max_new_tokens=max_new)
+  with Stopwatch() as sw:
+    done = engine.run_to_completion()
+  n_tok = sum(len(r.tokens) for r in done)
+  res = engine_stats(engine, done)
+  res["warmup_decode_steps"] = warmup_steps
+  res["wall_s"] = sw.seconds
+  res["tok_per_s"] = n_tok / max(sw.seconds, 1e-9)
+  print(f"engine: {len(done)} requests, {n_tok} tokens in {sw.seconds:.2f}s "
+        f"({res['tok_per_s']:.1f} tok/s) [layout={res['layout']} "
+        f"scheduler={res['scheduler']} kernel={res['decode_kernel']} "
+        f"{res['decode_path']}] device={res['device']}")
+  for r in sorted(done, key=lambda r: r.rid):
+    print(f"  request {r.rid}: prompt {r.prompt_len}, admitted step "
+          f"{r.admitted_step}, finished step {r.finished_step}, tokens "
+          f"{r.tokens}")
+  if "decode_traffic" in res:
+    tm = res["decode_traffic"]
+    print(f"decode traffic (peak/step): {tm['decode_path']}: dense "
+          f"materialized {tm['dense_materialized_bytes_per_step']} B, "
+          f"block reads {tm['block_read_bytes_per_step']} B, row writes "
+          f"{tm['row_write_bytes_per_step']} B")
+  print(f"engine stats: {engine.stats.summary()}")
+  by = res["layout_bytes"]
+  if by["kind"] == "paged":
+    print(f"kv memory: peak {by['peak_blocks']}/{by['num_blocks']} blocks "
+          f"x {by['block_bytes']} B (+{by['resident_bytes_per_slot']} B/slot "
+          f"resident), pool capacity {by['capacity_bytes']} B")
+  if args.stats_json:
+    with open(args.stats_json, "w") as f:
+      json.dump(res, f, indent=1)
+    print(f"stats written to {args.stats_json}")
+  return res
+
+
 def make_parser() -> argparse.ArgumentParser:
   ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   ap.add_argument("--arch", default="tinyllama-1.1b")
@@ -127,11 +233,29 @@ def make_parser() -> argparse.ArgumentParser:
   ap.add_argument("--seed", type=int, default=0)
   ap.add_argument("--stats-json", default=None, metavar="PATH",
                   help="write the run's stats (tokens included) as JSON")
+  ap.add_argument("--engine", action="store_true",
+                  help="run the continuous-batching ServeEngine demo")
+  ap.add_argument("--cache-layout", choices=("contiguous", "paged"),
+                  default="contiguous",
+                  help="engine mode: physical KV storage, capacity-sized "
+                       "slabs or a pool of token blocks")
+  ap.add_argument("--scheduler", choices=("fifo", "sjf", "paged"),
+                  default="fifo",
+                  help="engine admission policy (paged requires "
+                       "--cache-layout paged)")
+  ap.add_argument("--block-size", "--kv-block-size", dest="block_size",
+                  type=int, default=16,
+                  help="paged-layout token-block granularity")
+  ap.add_argument("--num-blocks", type=int, default=None,
+                  help="paged-layout pool size (default: batch * "
+                       "capacity/block, the contiguous equivalent)")
   return ap
 
 
 def main(argv=None):
   args = make_parser().parse_args(argv)
+  if args.engine:
+    return run_engine_demo(args)
   run = ServeRun(arch=args.arch, reduced=args.reduced, batch=args.batch,
                  prompt_len=args.prompt_len, gen=args.gen,
                  cache_policy=args.cache_policy,

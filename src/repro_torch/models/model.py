@@ -1,10 +1,12 @@
 """The dense decoder as one `nn.Module` (port of `repro.models.model.Model`
-for the dense family, contiguous cache layout).
+for the dense family).
 
   model = Model(cfg, context_len, device="cuda")
   model.init(generator)                                # random weights
   logits, caches = model.prefill(tokens)               # builds (PQ) caches
   logits, caches = model.decode_step(token, caches, lengths)
+  logits, res, pools = model.decode_step_paged(token, res, pools, tables,
+                                               lengths)  # paged layout
 
 Layers run in a Python loop; `caches` is a list with one policy state per
 layer.  PQ codebooks are built layer by layer inside prefill, which bounds
@@ -29,9 +31,9 @@ class Model(nn.Module):
                device="cuda"):
     super().__init__()
     require_served(cfg)
-    if cfg.cache_layout != "contiguous":
+    if cfg.cache_layout == "tiered":
       raise NotImplementedError(
-          f"cache layout {cfg.cache_layout!r} is not ported yet (ROADMAP A6)")
+          "cache layout 'tiered' is not ported yet (ROADMAP A9)")
     if cfg.weight_quant != "none" or cfg.parallel_block:
       raise NotImplementedError(
           "int8 weights and parallel blocks are not ported yet (ROADMAP A14)")
@@ -107,6 +109,40 @@ class Model(nn.Module):
                                   self.cache_policy)
       new_caches.append(c)
     return self._logits(x[:, 0]), new_caches
+
+  @torch.no_grad()
+  def decode_step_paged(self, token: torch.Tensor, resident_leaves,
+                        pool_leaves, tables: torch.Tensor, lengths
+                        ) -> Tuple[torch.Tensor, List[Any], List[Any]]:
+    """Block-table-native decode step: attention reads pooled KV in place.
+
+    `resident_leaves` are the policy-state leaves stacked over layers
+    (L, B, ...), None where the leaf is paged; `pool_leaves` the physical
+    pools (P+1, L, ..., block, ...), None where the leaf is resident, shared
+    by all layers and written in place; `tables` the (B, nb) int32 block
+    tables on the device.  Each layer's kernel call addresses its own pool
+    plane by a Python-int layer counter, so the step reads no device scalar
+    back.  Returns (logits (B, V), resident leaves, pool leaves).
+    """
+    token = token.to(self.device)
+    lengths = kvc.as_lengths(lengths, token.shape[0], self.device)
+    x = layers.embed_lookup(self.embed, token[:, None])
+    per_layer = []
+    for layer, blk in enumerate(self.layers):
+      res = [None if r is None else r[layer] for r in resident_leaves]
+      x, new_res, pool_leaves = tfm.dense_block_step_paged(
+          blk, x, res, pool_leaves, layer, tables, lengths, self.cfg,
+          self.cache_policy)
+      per_layer.append((res, new_res))
+    new_resident = []
+    for i, r in enumerate(resident_leaves):
+      # leaves the step passes through unchanged (codebooks) keep their
+      # storage; the others are restacked once per step
+      if r is None or all(new[i] is old[i] for old, new in per_layer):
+        new_resident.append(r)
+      else:
+        new_resident.append(torch.stack([new[i] for _, new in per_layer]))
+    return self._logits(x[:, 0]), new_resident, pool_leaves
 
   def init_cache(self, batch: int) -> List[Any]:
     """Zero cache at full context capacity, one state per layer."""

@@ -1,8 +1,9 @@
 """Dense decoder block with its cache modes (port of the dense paths of
 `repro.models.transformer`):
 
-  - prefill : full sequence, returns the layer's cache (exact or PQ)
-  - step    : single-token decode against the layer cache
+  - prefill    : full sequence, returns the layer's cache (exact or PQ)
+  - step       : single-token decode against the layer cache
+  - step_paged : single-token decode reading pooled block storage in place
 
 For the PQ policy, prefill is where the paper's clustering runs: the Eq. 1
 importance weights come from the same q/k, and the windowed weighted k-means
@@ -100,6 +101,21 @@ def _attn_step(p, x: torch.Tensor, cache, lengths: torch.Tensor, cfg,
   return out[:, None, :], new_cache
 
 
+def _attn_step_paged(p, x: torch.Tensor, resident, pools, layer: int,
+                     tables, lengths: torch.Tensor, cfg, policy):
+  """Single-token attention reading pooled block storage in place.
+
+  `resident`/`pools` are this layer's policy-state leaves (the other kind
+  None); the policy's block-native step streams pool blocks through the
+  per-slot `tables` and writes only the rows this token produced.
+  """
+  q, k, v = _attn_qkv_step(p, x, lengths, cfg)
+  attn, resident, pools = policy.append_and_attend_paged(
+      resident, pools, layer, tables, q, k, v, lengths)
+  out = torch.einsum("bhk,hkd->bd", attn.to(x.dtype), p["wo"])
+  return out[:, None, :], resident, pools
+
+
 def dense_block_prefill(p: DenseBlock, x: torch.Tensor, positions, cfg,
                         policy, lengths=None) -> Tuple[torch.Tensor, Any]:
   h = layers.rmsnorm(p.ln1, x, cfg.norm_eps)
@@ -116,3 +132,15 @@ def dense_block_step(p: DenseBlock, x: torch.Tensor, cache, lengths, cfg,
   x = x + attn
   h = layers.rmsnorm(p.ln2, x, cfg.norm_eps)
   return x + layers.mlp(p.mlp, h), new_cache
+
+
+def dense_block_step_paged(p: DenseBlock, x: torch.Tensor, resident, pools,
+                           layer: int, tables, lengths, cfg, policy):
+  """One decoder layer's decode step over block-pooled KV storage: mirrors
+  `dense_block_step`, with attention reading the pools in place."""
+  h = layers.rmsnorm(p.ln1, x, cfg.norm_eps)
+  attn, resident, pools = _attn_step_paged(
+      p.attn, h, resident, pools, layer, tables, lengths, cfg, policy)
+  x = x + attn
+  h = layers.rmsnorm(p.ln2, x, cfg.norm_eps)
+  return x + layers.mlp(p.mlp, h), resident, pools

@@ -1,5 +1,9 @@
 """Each CUDA kernel against its plain PyTorch version, on the card.
 
+The block-table-native kernels (K3, K4) are also held bit for bit to their
+dense counterparts (K1, K2) on the gathered dense view: they share one
+device body and differ only in how a token's row is addressed.
+
 Marked `cuda`: without a card every test skips.  This file imports no JAX,
 so it also runs on a machine that has only PyTorch:
 
@@ -78,6 +82,95 @@ def test_cuda_flash_decode_matches_plain(cuda_device, dtype, g, d):
   assert torch.all(out[0] == 0)
 
 
+def _paged_inputs(gen, dev, b, nb, blk, pool_blocks, lengths):
+  """Tables (B, nb): a seeded permutation of pool ids, with the trash block
+  `pool_blocks` in every entry past a row's length."""
+  perm = torch.randperm(pool_blocks, generator=gen, device=dev)[:b * nb]
+  tables = perm.reshape(b, nb).to(torch.int32)
+  ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+  used = -(-ln.long() // blk)
+  past = torch.arange(nb, device=dev)[None, :] >= used[:, None]
+  return tables.masked_fill(past, pool_blocks), ln
+
+
+# (B, H, g, d, m, K, blk, nb, L, layer, index dtype): the paged serve path's
+# full-width shapes (tinyllama-1.1b, K = 512 int16 and K = 256 uint8) and a
+# reduced one with other strides
+PAGED_GEOMETRIES = [
+    (4, 4, 8, 64, 32, 512, 16, 64, 22, 21, torch.int16),
+    (4, 4, 8, 64, 32, 256, 16, 64, 22, 7, torch.uint8),
+    (2, 2, 2, 16, 4, 16, 4, 6, 3, 1, torch.uint8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", PAGED_GEOMETRIES)
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_pq_decode_paged_matches_plain_and_k1(cuda_device, geometry,
+                                                   q_dtype):
+  b, h, g, d, m, k, blk, nb, n_layers, layer, idx_dtype = geometry
+  dev = cuda_device
+  gen = torch.Generator(device=dev).manual_seed(7)
+  pool_blocks = 4 * nb
+  cap = nb * blk
+  lengths = ([0, cap, cap // 2 + 3, 1] * b)[:b]
+  tables, ln = _paged_inputs(gen, dev, b, nb, blk, pool_blocks, lengths)
+  q = torch.randn(b * h, g, d, generator=gen, device=dev).to(q_dtype)
+  kcb, vcb = (torch.randn(b * h, m, k, d // m, generator=gen, device=dev
+                          ).to(torch.bfloat16) for _ in range(2))
+  shape = (pool_blocks + 1, n_layers, h, blk, m)
+  kpool, vpool = (torch.randint(0, k, shape, generator=gen, device=dev
+                                ).to(idx_dtype) for _ in range(2))
+  before = t_pqd.pq_decode_attention_paged.launches
+  out, stats = t_pqd.pq_decode_attention_paged(
+      q, kcb, vcb, kpool, vpool, tables, layer, ln, d ** -0.5)
+  plain = t_pqd.pq_decode_attention_paged_plain(
+      q, kcb, vcb, kpool, vpool, tables, layer, ln, d ** -0.5)
+  torch.cuda.synchronize()
+  assert t_pqd.pq_decode_attention_paged.launches == before + 1
+  torch.testing.assert_close(out, plain[0], atol=CUDA_ATOL, rtol=CUDA_ATOL)
+  torch.testing.assert_close(stats, plain[1], atol=CUDA_ATOL, rtol=CUDA_ATOL)
+  assert torch.all(out[:h] == 0) and torch.all(stats[:h, 1] == 0)
+  # K1 on the gathered dense view runs the same device body: bit-identical
+  dense = [p[:, layer][tables.long()].permute(0, 2, 1, 3, 4).reshape(
+      b * h, cap, m).contiguous() for p in (kpool, vpool)]
+  out1, stats1 = t_pqd.pq_decode_attention(
+      q, kcb, vcb, dense[0], dense[1], ln.repeat_interleave(h), d ** -0.5)
+  assert torch.equal(out, out1) and torch.equal(stats, stats1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [gm[:10] for gm in PAGED_GEOMETRIES[::2]])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_paged_flash_decode_matches_plain_and_k2(cuda_device, geometry,
+                                                      dtype):
+  b, h, g, d, _, _, blk, nb, n_layers, layer = geometry
+  dev = cuda_device
+  gen = torch.Generator(device=dev).manual_seed(8)
+  pool_blocks = 4 * nb
+  cap = nb * blk
+  lengths = ([cap, 0, 1, cap - blk + 5] * b)[:b]
+  tables, ln = _paged_inputs(gen, dev, b, nb, blk, pool_blocks, lengths)
+  q = torch.randn(b * h, g, d, generator=gen, device=dev).to(dtype)
+  shape = (pool_blocks + 1, n_layers, h, blk, d)
+  kpool, vpool = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+  before = t_pfd.paged_flash_decode.launches
+  out = t_pfd.paged_flash_decode(q, kpool, vpool, tables, layer, ln,
+                                 d ** -0.5)
+  plain = t_pfd.paged_flash_decode_plain(q, kpool, vpool, tables, layer, ln,
+                                         d ** -0.5)
+  torch.cuda.synchronize()
+  assert t_pfd.paged_flash_decode.launches == before + 1
+  torch.testing.assert_close(out, plain, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+  assert torch.all(out[h:2 * h] == 0)
+  dense = [p[:, layer][tables.long()].permute(0, 2, 1, 3, 4).reshape(
+      b * h, cap, d).contiguous() for p in (kpool, vpool)]
+  out2 = t_pfd.flash_decode(q, dense[0], dense[1], ln.repeat_interleave(h),
+                            d ** -0.5)
+  assert torch.equal(out, out2)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
   dev = cuda_device
@@ -92,3 +185,10 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
                                       device=dev),
                        torch.zeros(2, 8, 16, dtype=torch.bfloat16, device=dev),
                        ln, 0.25)
+  pool = torch.zeros(3, 2, 2, 4, 16, device=dev)
+  tables = torch.zeros(1, 2, dtype=torch.int64, device=dev)
+  with pytest.raises(TypeError, match="int32"):
+    t_pfd.paged_flash_decode(q, pool, pool, tables, 0, ln[:1], 0.25)
+  with pytest.raises(TypeError, match="Python int"):
+    t_pfd.paged_flash_decode(q, pool, pool, tables.int(),
+                             torch.tensor(0, device=dev), ln[:1], 0.25)

@@ -41,6 +41,38 @@ def test_cli_without_device_flag_needs_a_card():
     serve.main(ARGS)
 
 
+ENGINE_ARGS = ["--arch", "tinyllama-1.1b", "--reduced", "--engine",
+               "--cache-layout", "paged", "--scheduler", "paged",
+               "--prompt-len", "64", "--gen", "8", "--batch", "2"]
+
+
+def test_engine_cli_on_cpu_prints_requests_and_writes_stats(tmp_path,
+                                                            capsys):
+  path = tmp_path / "engine.json"
+  res = serve.main(ENGINE_ARGS + ["--device", "cpu", "--stats-json",
+                                  str(path)])
+  out = capsys.readouterr().out
+  stats = json.loads(path.read_text())
+  assert stats["layout"] == "paged" and stats["scheduler"] == "paged"
+  assert stats["decode_kernel"] == "torch" and stats["device"] == "cpu"
+  assert stats["decode_path"] == "dense-gather"
+  assert stats["finished"] == 4 and stats["preempts"] == 0
+  assert stats["layout_bytes"]["kind"] == "paged"
+  assert stats["decode_traffic"]["dense_materialized_bytes_per_step"] > 0
+  assert [r["prompt_len"] for r in stats["requests"]] == [64, 47, 30, 13]
+  for r in stats["requests"]:
+    assert len(r["tokens"]) == 4 and f"request {r['rid']}: " in out
+    assert all(0 <= t < 256 for t in r["tokens"])
+  assert stats["requests"] == res["requests"]
+
+
+def test_engine_cli_without_device_flag_needs_a_card():
+  if torch.cuda.is_available():
+    pytest.skip("a card is present: the default device is valid here")
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    serve.main(ENGINE_ARGS)
+
+
 def test_serve_run_is_deterministic_per_seed():
   run = serve.ServeRun(arch="tinyllama-1.1b", reduced=True, batch=2,
                        prompt_len=48, gen=4, device="cpu",
