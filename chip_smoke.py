@@ -8,22 +8,27 @@ Needs one CUDA card (built for an H100, sm_90a) and the CUDA toolkit.  It
      source, all started together) into `build/repro_torch/`;
   2. holds each kernel against its plain PyTorch version on the card at the
      full-width shapes its path gives it (K1/K2 the contiguous serve path,
-     K3/K4 the paged engine path: layer 21 of 22, shuffled block tables
-     with trash entries, ragged lengths) and times kernel, plain version,
-     the bound and (where one exists) a single PyTorch library call;
+     K3/K4/K5 the paged engine path: layer 21 of 22, shuffled block tables
+     with trash entries, ragged lengths; K6 the pq prefill's k-means; K8
+     the contiguous q4 store) and times kernel, plain version, the bound
+     and (where one exists) a single PyTorch library call;
   3. serves full-width tinyllama-1.1b (random bf16 weights from a seed)
-     through `ServeRun` with the `pq` and the `exact` policy, batch 4,
-     prompt 1024, 16 generated tokens, and checks from the launch counters
-     that every layer of every decode step ran its kernel (K1 or K2);
+     through `ServeRun` with the `pq` policy, the `exact` policy and the
+     `exact` policy on its packed q4 store, batch 4, prompt 1024, 16
+     generated tokens, and checks from the launch counters that every layer
+     of every decode step ran its kernels (K1; K2; K8 and K2) and every
+     k-means assignment of every pq prefill ran K6;
   4. serves it through the continuous-batching `ServeEngine` on the paged
      layout with the paged scheduler (the `--engine` CLI demo: 6 requests of
      1024 down to 939 prompt tokens, 16 new tokens each, 4 slots), for
-     `pq`, `exact`, and `pq` with a pool cut so the scheduler must preempt,
-     and checks that every layer of every decode step ran K3 or K4;
+     `pq`, `exact`, `exact` on the packed q4 store, and `pq` with a pool cut
+     so the scheduler must preempt, and checks that every layer of every
+     decode step ran K3, K4 or K5 and every admission's prefill ran K6;
   5. from one prefilled cache per policy, runs 4 teacher-forced decode steps
      with the `cuda` and the `torch` dispatch and compares the logits, on
      the contiguous layout (`Model.decode_step`) and on the paged layout
-     (block-native program against the dense gather program);
+     (block-native program against the dense gather program); for `pq`
+     also from each dispatch's own prefill (K6 against the plain k-means);
   6. profiles 3 decode steps per policy and layout (`torch.profiler`):
      device busy share and the kernels that take the device time.
 
@@ -49,6 +54,10 @@ ARCH = "tinyllama-1.1b"
 BATCH, PROMPT, GEN = 4, 1024, 16
 PARITY_STEPS = 4
 N_LAYERS = 22
+# k-means assignments per pq prefill: (iters 4 + 1) per codebook, K and V,
+# in every layer
+K6_PER_PREFILL = 5 * 2 * N_LAYERS
+CODEC = "q4"                       # the packed store the q4 runs serve
 # the paged engine path: `python -m repro_torch.launch.serve --engine ...`
 # (context 1056 = 66 blocks of 16; the pq body holds 1024 = 64 blocks)
 ENGINE_ARGS = ["--arch", ARCH, "--engine", "--cache-layout", "paged",
@@ -61,7 +70,10 @@ BLK = 16
 # and the paged scheduler must preempt
 PREEMPT_BLOCKS = 124
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per s
+# dense, per s; f16/bf16 on the tensor cores, f32 on the CUDA cores (also
+# the rate the integer operations of K8 are counted at)
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+            torch.float32: 67e12}
 # Kernel vs plain version, both f32 accumulation over the same bf16 inputs;
 # only the order of the f32 sums differs.
 KERNEL_ATOL = 1e-4
@@ -330,27 +342,186 @@ def paged_kernel_phase(dev, tag) -> dict:
   return res
 
 
+def packed_kernel_phase(dev, tag) -> dict:
+  """K5 and K8 against their plain versions: K5 at the paged q4 engine
+  path's shapes (the engine's first batch, layer 21 of 22, shuffled tables)
+  for bits 4, 5 and 8, and bit for bit against K4 on the f32 pools the
+  plain dequant gives; K8 at the contiguous q4 store of `ServeRun`."""
+  from repro_torch.kernels import packing
+  from repro_torch.kernels import paged_flash_decode as pfd
+
+  gen = torch.Generator(device=dev).manual_seed(2)
+  b, h, g, d = BATCH, 4, 8, 64
+  bh, scale, layer = b * h, d ** -0.5, N_LAYERS - 1
+  group = packing.group_size(d)
+  n_groups = d // group
+  cached = torch.tensor([PROMPT + 1 - 17 * i for i in range(b)],
+                        dtype=torch.int32, device=dev)
+  ragged = torch.tensor([0, 1, 517, 1056], dtype=torch.int32, device=dev)
+  q = torch.randn(bh, g, d, generator=gen, device=dev).to(torch.bfloat16)
+  nb = (PROMPT + 32) // BLK
+  pool_blocks = 4 * nb
+  shape = (pool_blocks + 1, N_LAYERS, h, BLK)
+  res, errs, inputs = {}, {}, {}
+  for bits in (4, 5, 8):
+    pools = []
+    for _ in range(2):      # K, then V: codes, scale, min from normal draws
+      x = torch.randn(shape + (d,), generator=gen, device=dev)
+      pools += list(packing.pack_rows(x, bits=bits, group=group))
+    del x
+    kf = packing.dequant_page(*pools[:3], bits=bits, group=group)
+    vf = packing.dequant_page(*pools[3:], bits=bits, group=group)
+    errs[bits] = 0.0
+    for length in (cached, ragged):
+      tables = _paged_tables(gen, dev, length, nb, pool_blocks)
+      out = pfd.packed_paged_flash_decode(q, *pools, tables, layer, length,
+                                          scale, bits)
+      ref = pfd.packed_paged_flash_decode_plain(q, *pools, tables, layer,
+                                                length, scale, bits)
+      out4 = pfd.paged_flash_decode(q.float(), kf, vf, tables, layer, length,
+                                    scale)
+      torch.cuda.synchronize()
+      if not torch.isfinite(out).all():
+        raise AssertionError(f"K5 (bits {bits}) output is not finite")
+      if not torch.equal(out, out4):
+        raise AssertionError(f"K5 (bits {bits}) is not bit-identical to K4 "
+                             f"on the dequantized pools")
+      empty = (length == 0).repeat_interleave(h)
+      if empty.any() and out[empty].abs().max() != 0:
+        raise AssertionError("K5 empty rows must give out 0")
+      errs[bits] = max(errs[bits], float((out - ref).abs().max()))
+    inputs[bits] = pools
+    del kf, vf
+  if not max(errs.values()) <= KERNEL_ATOL:
+    raise AssertionError(f"K5 max abs err {errs} > {KERNEL_ATOL}")
+  pools = inputs[4]
+  tables = _paged_tables(gen, dev, cached, nb, pool_blocks)
+  ms = cuda_time_ms(lambda: pfd.packed_paged_flash_decode(
+      q, *pools, tables, layer, cached, scale, 4))
+  plain_ms = cuda_time_ms(lambda: pfd.packed_paged_flash_decode_plain(
+      q, *pools, tables, layer, cached, scale, 4))
+  rows = int(cached.sum()) * h
+  row_bytes = packing.packed_width(d, 4) + 2 * n_groups * 2   # codes, headers
+  nbytes = (q.numel() * 2 + 2 * rows * row_bytes + tables.numel() * 4
+            + b * 4 + bh * g * d * 4)
+  ops = rows * g * d * 2 * 2 + 2 * rows * d * 2    # attention, dequant
+  b_ms, b_by = bound(nbytes, ops, torch.float16)
+  res["packed_paged_flash_decode"] = dict(
+      name="packed_paged_flash_decode", route="cuda",
+      source="src/repro_torch/csrc/packed_paged_flash_decode.cu",
+      replaces="src/repro/kernels/paged_flash_decode.py:283",
+      max_abs_err=errs[4], max_abs_err_q5=errs[5], max_abs_err_q8=errs[8],
+      tolerance=KERNEL_ATOL, bit_identical_to_k4=True, ms=ms,
+      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+  print(f"{tag} K5 packed_paged_flash_decode: max_abs_err q4 {errs[4]:.3e} "
+        f"q5 {errs[5]:.3e} q8 {errs[8]:.3e} (tol {KERNEL_ATOL}), "
+        f"bit-identical to K4 on the dequantized pools; q4 kernel {ms:.4f} ms "
+        f"plain {plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us ({b_by}, "
+        f"{nbytes} B) library n/a")
+  del inputs, pools
+
+  # K8 at ServeRun's contiguous q4 store: B * H * capacity rows of d/2 B
+  n, dp = b * h * (PROMPT + GEN), packing.packed_width(d, 4)
+  p = torch.randint(0, 256, (n, dp), generator=gen, device=dev,
+                    dtype=torch.int32).to(torch.uint8)
+  got = packing.unpack_u4_kernel(p)
+  want = packing.unpack_u4(p)
+  torch.cuda.synchronize()
+  if not torch.equal(got, want):
+    raise AssertionError("K8 differs from unpack_u4")
+  ms = cuda_time_ms(lambda: packing.unpack_u4_kernel(p))
+  plain_ms = cuda_time_ms(lambda: packing.unpack_u4(p))
+  nbytes = n * dp + n * 2 * dp * 4
+  b_ms, b_by = bound(nbytes, n * dp * 2, torch.float32)
+  res["unpack_u4"] = dict(
+      name="unpack_u4", route="cuda", source="src/repro_torch/csrc/unpack_u4.cu",
+      replaces="src/repro/kernels/packing.py:170", max_abs_err=0.0,
+      tolerance=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+      library_ms=None)
+  print(f"{tag} K8 unpack_u4 ({n} x {dp} B): equal to unpack_u4; kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us "
+        f"({b_by}, {nbytes} B) library n/a")
+  return res
+
+
+def kmeans_kernel_phase(dev, tag) -> dict:
+  """K6 against its plain version at the pq prefill's shapes: R = B*H*m =
+  512 rows of N = 1024 body tokens against K = 512 centroids of dsub = 2
+  (`ServeRun`, batch 4) and R = 128 (an engine admission, batch 1); bf16
+  points (the model's keys) and f32 centroids, as the k-means hands them."""
+  from repro_torch.core import kmeans
+  from repro_torch.kernels import kmeans_assign as k6
+
+  gen = torch.Generator(device=dev).manual_seed(3)
+  n, k_cent, dsub = 1024, 512, 2
+  res, agree = {}, {}
+  for r in (BATCH * 4 * 32, 4 * 32):
+    x = torch.randn(r, n, dsub, generator=gen, device=dev).to(torch.bfloat16)
+    c = torch.randn(r, k_cent, dsub, generator=gen, device=dev)
+    got = k6.kmeans_assign(x, c)
+    want = k6.kmeans_assign_plain(x, c)
+    full = kmeans.assign_clusters(x, c)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+      raise AssertionError(f"K6 ids differ from the plain version at R={r}: "
+                           f"{int((got != want).sum())} of {got.numel()}")
+    agree[r] = float((got == full).float().mean())
+    if r == BATCH * 4 * 32:
+      ms = cuda_time_ms(lambda: k6.kmeans_assign(x, c))
+      plain_ms = cuda_time_ms(lambda: k6.kmeans_assign_plain(x, c), iters=10)
+      nbytes = x.numel() * 2 + c.numel() * 4 + r * n * 4
+      ops = r * n * k_cent * (2 * dsub + 2) + r * k_cent * 2 * dsub
+      b_ms, b_by = bound(nbytes, ops, torch.float32)
+      r_timed = r
+    del x, c, got, want, full
+  res["kmeans_assign"] = dict(
+      name="kmeans_assign", route="cuda",
+      source="src/repro_torch/csrc/kmeans_assign.cu",
+      replaces="src/repro/kernels/kmeans_assign.py:39", max_abs_err=0.0,
+      tolerance=0.0, agree_with_assign_clusters=agree, ms=ms,
+      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+  print(f"{tag} K6 kmeans_assign: ids equal to the plain version at R = "
+        f"{', '.join(map(str, agree))}; share equal to assign_clusters "
+        f"{', '.join(f'{v:.6f}' for v in agree.values())}; R={r_timed} kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us "
+        f"({b_by}) library n/a")
+  return res
+
+
 def launch_counters() -> dict:
   """Every kernel wrapper, by the name the kernels line uses."""
   from repro_torch.kernels import paged_flash_decode as pfd
   from repro_torch.kernels import pq_decode as pqd
+  from repro_torch.kernels import kmeans_assign as k6
+  from repro_torch.kernels import packing
   return {"pq_decode_attention": pqd.pq_decode_attention,
           "flash_decode": pfd.flash_decode,
           "pq_decode_attention_paged": pqd.pq_decode_attention_paged,
-          "paged_flash_decode": pfd.paged_flash_decode}
+          "paged_flash_decode": pfd.paged_flash_decode,
+          "packed_paged_flash_decode": pfd.packed_paged_flash_decode,
+          "kmeans_assign": k6.kmeans_assign,
+          "unpack_u4": packing.unpack_u4_kernel}
 
 
 def serve_phase(dev, tag) -> dict:
-  """Full-width serve through ServeRun; counters prove the kernels ran."""
+  """Full-width serve through ServeRun; counters prove the kernels ran:
+  every layer of every decode step its decode kernels (K1; K2; K8 twice, for
+  K and V, then K2), every k-means assignment of every pq prefill K6."""
   from repro_torch.launch.serve import ServeRun
 
   counters = launch_counters()
-  kernel_of = {"pq": "pq_decode_attention", "exact": "flash_decode"}
+  steps = 1 + 2 * GEN          # warmup step, timed loop, latency pass
+  prefills = 3                 # warmup, timed, latency pass
+  per_step = {"pq": {"pq_decode_attention": 1},
+              "exact": {"flash_decode": 1},
+              "exact q4": {"flash_decode": 1, "unpack_u4": 2}}
   models, launches = {}, {name: 0 for name in counters}
-  for policy in ("pq", "exact"):
+  for label, policy, codec in (("pq", "pq", "none"),
+                               ("exact", "exact", "none"),
+                               ("exact q4", "exact", CODEC)):
     run = ServeRun(arch=ARCH, reduced=False, batch=BATCH, prompt_len=PROMPT,
-                   gen=GEN, cache_policy=policy, decode_kernel="auto",
-                   device=str(dev), seed=0)
+                   gen=GEN, cache_policy=policy, kv_resident_codec=codec,
+                   decode_kernel="auto", device=str(dev), seed=0)
     model = run.build()
     cfg = model.cfg
     for c in counters.values():
@@ -359,27 +530,34 @@ def serve_phase(dev, tag) -> dict:
     res = run.run(model)
     peak = torch.cuda.max_memory_allocated(dev)
     grew = {name: c.launches for name, c in counters.items()}
-    steps = 1 + 2 * GEN          # warmup step, timed loop, latency pass
-    want = {name: (steps * cfg.n_layers if name == kernel_of[policy] else 0)
+    want = {name: steps * cfg.n_layers * per_step[label].get(name, 0)
             for name in counters}
+    if policy == "pq":
+      want["kmeans_assign"] = prefills * K6_PER_PREFILL
     if grew != want:
-      raise AssertionError(f"{policy}: kernel launches {grew} != {want} "
-                           f"({steps} decode steps x {cfg.n_layers} layers)")
+      raise AssertionError(f"{label}: kernel launches {grew} != {want} "
+                           f"({steps} decode steps x {cfg.n_layers} layers, "
+                           f"{prefills} prefills)")
     toks = res["tokens"]
     if toks.shape != (BATCH, GEN) or toks.min() < 0 or \
         toks.max() >= cfg.vocab_size:
-      raise AssertionError(f"{policy}: bad tokens {toks.shape}")
+      raise AssertionError(f"{label}: bad tokens {toks.shape}")
     if res["decode_kernel"] != "cuda":
-      raise AssertionError(f"{policy}: decode ran {res['decode_kernel']}")
-    print(f"{tag} serve {policy}: prefill {res['prefill_s']:.4f} s decode "
+      raise AssertionError(f"{label}: decode ran {res['decode_kernel']}")
+    if codec != "none" and type(model.cache_policy).__name__ != \
+        "PackedExactPolicy":
+      raise AssertionError(f"{label}: served {model.cache_policy!r}")
+    cache_bytes = sum(t.nbytes for t in model.init_cache(BATCH)[0]) * \
+        cfg.n_layers
+    ran = ", ".join(f"{n} {grew[n]}" for n in counters if grew[n])
+    print(f"{tag} serve {label}: prefill {res['prefill_s']:.4f} s decode "
           f"{res['tok_per_s']:.2f} tok/s step p50 "
           f"{res['decode_step_p50_ms']:.4f} ms p99 "
           f"{res['decode_step_p99_ms']:.4f} ms peak mem "
-          f"{peak / 2**30:.3f} GiB kernel launches "
-          f"{grew[kernel_of[policy]]} ({steps} steps x {cfg.n_layers} "
-          f"layers)")
-    print(f"{tag} serve {policy} sample tokens: {toks[0].tolist()}")
-    models[policy] = (run, model)
+          f"{peak / 2**30:.3f} GiB, KV store {cache_bytes} B, kernel "
+          f"launches {ran} ({steps} steps x {cfg.n_layers} layers)")
+    print(f"{tag} serve {label} sample tokens: {toks[0].tolist()}")
+    models[label] = (run, model)
     for name in counters:
       launches[name] += grew[name]
   return models, launches
@@ -388,15 +566,18 @@ def serve_phase(dev, tag) -> dict:
 def engine_phase(tag) -> dict:
   """Full-width continuous batching on the paged layout through the engine
   CLI's demo; counters prove every layer of every decode step (warm-up
-  request included) ran K3 (pq) or K4 (exact) and nothing else."""
+  request included) ran K3 (pq), K4 (exact) or K5 (exact q4) and nothing
+  else, and every admission's pq prefill ran K6 in every assignment."""
   from repro_torch.launch import serve
 
   counters = launch_counters()
   kernel_of = {"pq": "pq_decode_attention_paged",
-               "exact": "paged_flash_decode"}
+               "exact": "paged_flash_decode",
+               "exact q4": "packed_paged_flash_decode"}
   launches = {name: 0 for name in counters}
   for label, policy, extra in (
       ("pq", "pq", []), ("exact", "exact", []),
+      ("exact q4", "exact", ["--kv-resident-codec", CODEC]),
       ("pq preempt", "pq", ["--num-blocks", str(PREEMPT_BLOCKS)])):
     args = serve.make_parser().parse_args(
         ENGINE_ARGS + ["--cache-policy", policy] + extra)
@@ -405,12 +586,16 @@ def engine_phase(tag) -> dict:
     res = serve.run_engine_demo(args)
     grew = {name: c.launches for name, c in counters.items()}
     steps = res["decode_steps"] + res["warmup_decode_steps"]
-    want = {name: (steps * N_LAYERS if name == kernel_of[policy] else 0)
+    kernel = kernel_of[label.replace(" preempt", "")]
+    want = {name: (steps * N_LAYERS if name == kernel else 0)
             for name in counters}
+    prefills = res["admits"] + 1             # the warm-up request's too
+    if policy == "pq":
+      want["kmeans_assign"] = prefills * K6_PER_PREFILL
     if grew != want:
       raise AssertionError(f"engine {label}: kernel launches {grew} != "
                            f"{want} ({steps} decode steps x {N_LAYERS} "
-                           f"layers)")
+                           f"layers, {prefills} prefills)")
     if (res["decode_kernel"], res["decode_path"]) != ("cuda", "block-native"):
       raise AssertionError(f"engine {label}: decode ran {res['decode_kernel']}"
                            f" {res['decode_path']}")
@@ -420,7 +605,7 @@ def engine_phase(tag) -> dict:
         or any(not 0 <= t < 32000 for r in reqs for t in r["tokens"])):
       raise AssertionError(f"engine {label}: requests did not all finish "
                            f"with {GEN} valid tokens: {reqs}")
-    if extra and res["preempts"] < 1:
+    if "preempt" in label and res["preempts"] < 1:
       raise AssertionError(f"engine {label}: {PREEMPT_BLOCKS} blocks did "
                            f"not force a preemption")
     lat, by = res["decode_latency"], res["layout_bytes"]
@@ -430,8 +615,9 @@ def engine_phase(tag) -> dict:
           f"{lat['p99_ms']} ms over {lat['steps']} steps, occupancy "
           f"{100 * res['occupancy']:.1f}%, preempts {res['preempts']}, peak "
           f"{by['peak_blocks']}/{by['num_blocks']} blocks of "
-          f"{by['block_bytes']} B, {kernel_of[policy]} launches "
-          f"{grew[kernel_of[policy]]} ({steps} steps x {N_LAYERS} layers)")
+          f"{by['block_bytes']} B, {kernel} launches {grew[kernel]} "
+          f"({steps} steps x {N_LAYERS} layers), kmeans_assign launches "
+          f"{grew['kmeans_assign']} ({prefills} prefills)")
     print(f"{tag} engine {label} decode traffic: "
           f"{json.dumps(res['decode_traffic'])}")
     for name in counters:
@@ -440,7 +626,8 @@ def engine_phase(tag) -> dict:
 
 
 def parity_phase(models, tag) -> None:
-  """cuda vs torch dispatch from one prefilled cache, teacher-forced."""
+  """cuda vs torch dispatch from one prefilled cache, teacher-forced; for pq
+  also from each dispatch's own prefill (K6 against the plain k-means)."""
   for policy, (run, model) in models.items():
     cfg = model.cfg
     cuda_policy = model.cache_policy
@@ -450,8 +637,25 @@ def parity_phase(models, tag) -> None:
     prompts = run.prompts(cfg.vocab_size).to(model.device)
     logits, cache = model.prefill(prompts)
     tok = torch.argmax(logits, -1)
-    cache_c, cache_t = cache, cache
-    worst, checked = 0.0, 0
+    variants = [("", cache, cache)]
+    if cfg.cache_policy == "pq":
+      model.cache_policy = torch_policy
+      try:
+        _, cache_t = model.prefill(prompts)
+      finally:
+        model.cache_policy = cuda_policy
+      variants.append((" (own prefills: K6 vs plain k-means)", cache, cache_t))
+    for note, cache_c, cache_t in variants:
+      _teacher_forced(model, cuda_policy, torch_policy, tok, cache_c, cache_t,
+                      f"{policy}{note}", tag)
+
+
+def _teacher_forced(model, cuda_policy, torch_policy, tok, cache_c, cache_t,
+                    label, tag) -> None:
+  """PARITY_STEPS decode steps of each dispatch on its cache, fed the torch
+  dispatch's tokens; logits within LOGIT_ATOL, decisive tokens equal."""
+  worst, checked = 0.0, 0
+  try:
     for i in range(PARITY_STEPS):
       lengths = torch.full((BATCH,), PROMPT + i, dtype=torch.int32,
                            device=model.device)
@@ -462,33 +666,36 @@ def parity_phase(models, tag) -> None:
       model.cache_policy = cuda_policy
       lc, lt = lc.float(), lt.float()
       if not torch.isfinite(lc).all():
-        raise AssertionError(f"{policy}: non-finite logits")
+        raise AssertionError(f"{label}: non-finite logits")
       worst = max(worst, float((lc - lt).abs().max()))
       top2 = torch.topk(lt, 2, dim=-1).values
       decisive = (top2[:, 0] - top2[:, 1]) > LOGIT_ATOL
       if (torch.argmax(lc, -1) != torch.argmax(lt, -1))[decisive].any():
-        raise AssertionError(f"{policy}: tokens differ at step {i}")
+        raise AssertionError(f"{label}: tokens differ at step {i}")
       checked += int(decisive.sum())
       tok = torch.argmax(lt, -1)      # teacher-forced on the plain path
-    if not worst <= LOGIT_ATOL:
-      raise AssertionError(f"{policy}: cuda vs torch logits differ by "
-                           f"{worst} > {LOGIT_ATOL}")
-    print(f"{tag} parity {policy}: cuda vs torch dispatch, "
-          f"{PARITY_STEPS} steps, max |dlogit| {worst:.4f} (tol "
-          f"{LOGIT_ATOL}), {checked} decisive tokens equal")
+  finally:
+    model.cache_policy = cuda_policy
+  if not worst <= LOGIT_ATOL:
+    raise AssertionError(f"{label}: cuda vs torch logits differ by "
+                         f"{worst} > {LOGIT_ATOL}")
+  print(f"{tag} parity {label}: cuda vs torch dispatch, "
+        f"{PARITY_STEPS} steps, max |dlogit| {worst:.4f} (tol "
+        f"{LOGIT_ATOL}), {checked} decisive tokens equal")
 
 
 def paged_parity_phase(tag) -> dict:
   """cuda vs torch dispatch on the paged layout, from one admitted state
-  per policy: the block-native program (K3/K4 reading the pools in place)
+  per policy: the block-native program (K3/K4/K5 reading the pools in place)
   against the dense gather -> `Model.decode_step` -> scatter program on a
   copy of the same storage, teacher-forced on the plain path's tokens.
   Returns the engines (block-native, admitted) for the profile phase."""
   from repro_torch.launch import serve
   engines = {}
-  for policy in ("pq", "exact"):
+  for policy, extra in (("pq", []), ("exact", []),
+                        ("exact q4", ["--kv-resident-codec", CODEC])):
     args = serve.make_parser().parse_args(
-        ENGINE_ARGS + ["--cache-policy", policy])
+        ENGINE_ARGS + ["--cache-policy", policy.split()[0]] + extra)
     engine = serve.build_engine(args)
     layout, model = engine.layout, engine.model
     if not layout.block_native:
@@ -629,6 +836,8 @@ def main() -> int:
   t0 = time.monotonic()
   kernels = kernel_phase(dev, tag)
   kernels.update(paged_kernel_phase(dev, tag))
+  kernels.update(packed_kernel_phase(dev, tag))
+  kernels.update(kmeans_kernel_phase(dev, tag))
   print(f"{tag} kernel phase {time.monotonic() - t0:.2f} s")
   t0 = time.monotonic()
   models, serve_launches = serve_phase(dev, tag)
@@ -636,11 +845,13 @@ def main() -> int:
   t0 = time.monotonic()
   engine_launches = engine_phase(tag)
   print(f"{tag} engine phase {time.monotonic() - t0:.2f} s")
-  # each kernel's launches on the path that runs it
-  for name in ("pq_decode_attention", "flash_decode"):
-    kernels[name]["launches"] = serve_launches[name]
-  for name in ("pq_decode_attention_paged", "paged_flash_decode"):
-    kernels[name]["launches"] = engine_launches[name]
+  # each kernel's launches on the paths that run it
+  for name in kernels:
+    kernels[name]["launches"] = serve_launches[name] + engine_launches[name]
+  missing = [name for name in kernels if kernels[name]["launches"] == 0]
+  if missing:
+    raise AssertionError(f"kernels never launched on the main path: "
+                         f"{missing}")
   t0 = time.monotonic()
   parity_phase(models, tag)
   engines = paged_parity_phase(tag)

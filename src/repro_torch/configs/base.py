@@ -76,7 +76,7 @@ class ModelConfig:
                                    # | q4 | q8; PQ codes always spill
                                    # verbatim — they ARE the compressed form)
   kv_resident_codec: str = "none"  # exact-policy resident KV store: none
-                                   # (dense floats) | q4 | q8 (sub-byte
+                                   # (dense floats) | q4 | q5 | q8 (sub-byte
                                    # packed pages decoded in-kernel —
                                    # kernels/packing.py block format)
   prefix_cache: bool = False       # share prompt-prefix KV blocks across
@@ -150,6 +150,7 @@ class ModelConfig:
         sink=self.pq_sink, recent=self.pq_recent,
         block=(self.kv_block_size
                if self.cache_layout in ("paged", "tiered") else 0),
+        kv_resident_codec=self.kv_resident_codec,
         decode_kernel=self.decode_kernel, device=str(device),
         pq=self.pq_cache_config(context_len) if name == "pq" else None)
     return cache_registry.make(name, spec)

@@ -1,5 +1,5 @@
-"""Unified `CachePolicy` API (port of `repro.core.cache_api`, the `exact` and
-`pq` policies).
+"""Unified `CachePolicy` API (port of `repro.core.cache_api`, the `exact`
+policy with its packed resident store, and the `pq` policy).
 
 Every policy implements:
 
@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import cache_registry, decode_dispatch
 from repro_torch.core import kv_cache as kvc
+from repro_torch.kernels import packing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +43,10 @@ class CacheSpec:
   sink: int = 8              # exact sink tokens (paper §IV-A)
   recent: int = 32           # exact recent window (= t of Eq. 1)
   block: int = 0             # paged-layout token-block size (0 = contiguous)
+  kv_resident_codec: str = "none"  # exact-policy resident store: none keeps
+                             # dense floats; q4/q5/q8 store packed codes +
+                             # f16 headers (kernels/packing.py).  Other
+                             # policies ignore it.
   decode_kernel: str = "auto"  # core.decode_dispatch key: torch | cuda | auto
   device: str = "cpu"
   pq: Optional[kvc.PQCacheConfig] = None   # aqpim geometry (policy "pq")
@@ -54,6 +59,11 @@ class CacheSpec:
           f"sink/recent must be >= 0, got ({self.sink}, {self.recent})")
     if self.block < 0:
       raise ValueError(f"block must be >= 0, got {self.block}")
+    if self.kv_resident_codec not in packing.RESIDENT_CODECS:
+      raise ValueError(
+          f"kv_resident_codec must be one of "
+          f"{tuple(packing.RESIDENT_CODECS)}, got "
+          f"{self.kv_resident_codec!r}")
     decode_dispatch.validate(self.decode_kernel)
     if self.block and self.capacity % self.block:
       raise ValueError(
@@ -167,8 +177,18 @@ class CachePolicy:
 class ExactPolicy(CachePolicy):
   """Full-precision KV, dense decode attention (the paper's upper bound).
 
-  With the `cuda` dispatch the step runs the flash-decode kernel (K2).
+  With the `cuda` dispatch the step runs the flash-decode kernel (K2), and
+  on the paged layout K4.  With `CacheSpec.kv_resident_codec` set to
+  q4/q5/q8, construction yields a `PackedExactPolicy`: the same registry
+  key, a packed resident store.
   """
+
+  def __new__(cls, spec: CacheSpec):
+    # the resident codec is a storage format, not another algorithm: "exact"
+    # stays the one registry key and the spec picks the store
+    if cls is ExactPolicy and spec.kv_resident_codec != "none":
+      return super().__new__(PackedExactPolicy)
+    return super().__new__(cls)
 
   @property
   def block_native(self) -> bool:
@@ -201,6 +221,70 @@ class ExactPolicy(CachePolicy):
         k_pool, v_pool, layer, tables, q, k_new, v_new, lengths,
         self.spec.sm_scale(q.shape[-1]))
     return out, list(resident_leaves), [k_pool, v_pool]
+
+
+class PackedExactPolicy(ExactPolicy):
+  """Exact attention over a sub-byte packed resident store (q4/q5/q8).
+
+  State is `kv_cache.PackedExactLayerCache`: split-half nibble codes plus
+  per-group f16 scale/min rows (kernels/packing.py block format), about
+  0.19x the fp32 store at q4.  With the `cuda` dispatch the contiguous step
+  dequantizes the store through K8 and attends through K2, and the paged
+  step is block-native through K5 (pages decoded on load); the plain path
+  dequantizes with the same formula.
+
+  Built by `ExactPolicy.__new__` when `spec.kv_resident_codec` is not
+  "none"; never registered under a key of its own.
+  """
+  # chunked suffix prefill writes dense K/V rows only, so prefix blocks are
+  # not shareable
+  prefix_shareable = False
+
+  def __init__(self, spec: CacheSpec):
+    super().__init__(spec)
+    self.bits = packing.RESIDENT_CODECS[spec.kv_resident_codec]
+
+  def init(self, b: int, h: int, d: int):
+    return kvc.packed_exact_cache_init(b, h, self.spec.capacity, d,
+                                       self.bits, self.spec.device)
+
+  def prefill(self, k, v, weights=None, lengths=None):
+    del weights, lengths  # padding rows are masked at attend time
+    return kvc.packed_exact_cache_prefill(k, v, self.spec.capacity,
+                                          self.bits)
+
+  def append_and_attend(self, state, q, k_new, v_new, lengths):
+    return kvc.packed_exact_cache_append_and_attend(
+        state, q, k_new, v_new, lengths, self.spec.sm_scale(q.shape[-1]),
+        bits=self.bits, use_kernel=self.use_kernel)
+
+  def append_and_attend_paged(self, resident_leaves, pool_leaves, layer,
+                              tables, q, k_new, v_new, lengths):
+    out, pools = kvc.packed_exact_cache_paged_step(
+        pool_leaves, layer, tables, q, k_new, v_new, lengths,
+        self.spec.sm_scale(q.shape[-1]), bits=self.bits)
+    return out, list(resident_leaves), pools
+
+  def paged_axes(self):
+    return kvc.PackedExactLayerCache(k_pack=2, k_scale=2, k_min=2,
+                                     v_pack=2, v_scale=2, v_min=2)
+
+  def spill_codecs(self):
+    # the tiered layout (ROADMAP A9) would move packed pages verbatim:
+    # re-quantizing codes would corrupt them
+    return kvc.PackedExactLayerCache(k_pack="raw", k_scale="raw",
+                                     k_min="raw", v_pack="raw",
+                                     v_scale="raw", v_min="raw")
+
+  def bytes(self, b: int, h: int, d: int) -> dict:
+    group = packing.group_size(d)
+    # codes + f16 scale/min headers, k and v
+    per_tok = packing.packed_width(d, self.bits) + (d // group) * 4
+    per_head = self.spec.capacity * per_tok * 2
+    exact = self.spec.capacity * d * 2 * 2
+    return dict(per_head_bytes=per_head, total_bytes=per_head * b * h,
+                equivalent_exact_bytes=exact * b * h,
+                reduction_ratio=exact / per_head)
 
 
 @cache_registry.register("pq")
@@ -240,7 +324,8 @@ class PQPolicy(CachePolicy):
   def prefill(self, k, v, weights=None, lengths=None):
     if weights is None:
       weights = torch.ones(k.shape[:3], dtype=torch.float32, device=k.device)
-    return kvc.pq_cache_prefill(k, v, weights, self.pq_cfg, length=lengths)
+    return kvc.pq_cache_prefill(k, v, weights, self.pq_cfg, length=lengths,
+                                use_kernel=self.use_kernel)
 
   def append_and_attend(self, state, q, k_new, v_new, lengths):
     scale = self.spec.sm_scale(q.shape[-1])

@@ -6,14 +6,18 @@ clusters keep their previous centroid; strided deterministic init.
 
 Every function takes leading batch dimensions (`...`) written out in place
 of the reference's `vmap` over heads and subvectors.  All accumulation is
-f32.  The assignment stays plain PyTorch, as the reference computes it in
-plain JAX.
+f32.  The assignment runs in plain PyTorch (`assign_clusters`, as the
+reference computes it in plain JAX) or, with `use_kernel`, through the CUDA
+kernel K6 (`kernels/kmeans_assign.py`); the PQ policy decides which from
+its resolved decode dispatch.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import ops as kops
 
 DEFAULT_ITERS = 4  # paper §III-B: "just four iterations converge"
 
@@ -34,6 +38,12 @@ def pairwise_sq_dists(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 def assign_clusters(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
   """Nearest centroid; ties take the first index (as `jnp.argmin`)."""
   return torch.argmin(pairwise_sq_dists(x, centroids), dim=-1).to(torch.int32)
+
+
+def assigner(use_kernel: bool):
+  """The assignment step: K6 (`kernels.ops.kmeans_assign`) with
+  `use_kernel`, else plain PyTorch."""
+  return kops.kmeans_assign if use_kernel else assign_clusters
 
 
 def weighted_update(x: torch.Tensor, w: torch.Tensor, assign: torch.Tensor,
@@ -60,9 +70,11 @@ def init_centroids(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def weighted_kmeans(x: torch.Tensor, w: torch.Tensor, k: int,
                     iters: int = DEFAULT_ITERS,
-                    mask: Optional[torch.Tensor] = None
+                    mask: Optional[torch.Tensor] = None,
+                    use_kernel: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """Importance-weighted k-means.
+  """Importance-weighted k-means (each assignment through K6 with
+  `use_kernel`).
 
   x (..., N, d); w (..., N) non-negative weights; mask (..., N) bool marks
   real rows (padding gets zero weight and never seeds a centroid: masked rows
@@ -76,8 +88,8 @@ def weighted_kmeans(x: torch.Tensor, w: torch.Tensor, k: int,
   total = torch.sum(w.float(), dim=-1, keepdim=True)
   w = torch.where(total > 0, w, torch.ones_like(w))
 
+  assign = assigner(use_kernel)
   centroids = init_centroids(x_init, k)
   for _ in range(iters):
-    centroids = weighted_update(x, w, assign_clusters(x, centroids),
-                                centroids)
-  return centroids, assign_clusters(x, centroids)
+    centroids = weighted_update(x, w, assign(x, centroids), centroids)
+  return centroids, assign(x, centroids)

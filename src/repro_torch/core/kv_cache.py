@@ -1,7 +1,7 @@
 """KV-cache structures: exact and PQ-compressed (AQPIM §III-A/H layout).
 
-Port of `repro.core.kv_cache` (contiguous and paged layouts; the packed
-exact store is ROADMAP A7).  PQ cache layout per layer:
+Port of `repro.core.kv_cache` (contiguous and paged layouts; exact, packed
+exact and PQ stores).  PQ cache layout per layer:
 
   [ sink (exact) | PQ body (codebooks + per-token indices) | recent ring (exact) ]
 
@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core import pq, pq_attention, windowed
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import packing
 
 
 def as_lengths(length, b: int, device=None) -> torch.Tensor:
@@ -179,6 +180,136 @@ def exact_cache_append_and_attend_kernel(cache: ExactLayerCache, q, k_new,
 
 
 # ---------------------------------------------------------------------------
+# Packed exact cache: sub-byte resident KV (kernels/packing.py block format)
+# ---------------------------------------------------------------------------
+
+class PackedExactLayerCache(NamedTuple):
+  """Exact KV stored as q4/q5/q8 block-quantized rows (kernels/packing.py).
+
+  The token axis is 2 on every leaf, as in ExactLayerCache, so the paged
+  layout pages this state like the dense one: its pool blocks hold codes
+  and f16 headers instead of floats.
+  """
+  k_pack: torch.Tensor          # (B, H, N, d*bits/8) uint8
+  k_scale: torch.Tensor         # (B, H, N, G) f16, G = d / group
+  k_min: torch.Tensor           # (B, H, N, G) f16
+  v_pack: torch.Tensor
+  v_scale: torch.Tensor
+  v_min: torch.Tensor
+
+
+def packed_exact_cache_init(b: int, h: int, n_max: int, d: int, bits: int,
+                            device="cpu") -> PackedExactLayerCache:
+  group = packing.group_size(d)
+
+  def z(width, dtype):
+    return torch.zeros((b, h, n_max, width), dtype=dtype, device=device)
+  dp, ng = packing.packed_width(d, bits), d // group
+  return PackedExactLayerCache(
+      k_pack=z(dp, torch.uint8), k_scale=z(ng, torch.float16),
+      k_min=z(ng, torch.float16), v_pack=z(dp, torch.uint8),
+      v_scale=z(ng, torch.float16), v_min=z(ng, torch.float16))
+
+
+def packed_exact_cache_prefill(k: torch.Tensor, v: torch.Tensor, n_max: int,
+                               bits: int) -> PackedExactLayerCache:
+  """k/v (B, H, N, D) -> quantized cache padded to n_max."""
+  d = k.shape[-1]
+  group = packing.group_size(d)
+  pad = (0, 0, 0, n_max - k.shape[2])
+  leaves = (packing.pack_rows(k, bits=bits, group=group)
+            + packing.pack_rows(v, bits=bits, group=group))
+  return PackedExactLayerCache(
+      *[torch.nn.functional.pad(x, pad) for x in leaves])
+
+
+def packed_exact_dequant(cache: PackedExactLayerCache, bits: int,
+                         use_kernel: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Whole-store dequant -> (k, v) f32 (..., N, D), the formula K5 applies
+  per element; with `use_kernel` the nibble widen runs through K8."""
+  d = cache.k_pack.shape[-1] * 8 // bits
+  group = packing.group_size(d)
+  k = packing.dequant_page(cache.k_pack, cache.k_scale, cache.k_min,
+                           bits=bits, group=group, use_kernel=use_kernel)
+  v = packing.dequant_page(cache.v_pack, cache.v_scale, cache.v_min,
+                           bits=bits, group=group, use_kernel=use_kernel)
+  return k, v
+
+
+def packed_insert_one(cache: PackedExactLayerCache, k_new, v_new, lengths,
+                      bits: int) -> PackedExactLayerCache:
+  """Quantize one token row per request and insert it at position
+  lengths[b] (k_new/v_new (B, H, D)); the packed analogue of
+  `exact_insert_one`."""
+  d = k_new.shape[-1]
+  group = packing.group_size(d)
+  rows = (packing.pack_rows(k_new, bits=bits, group=group)
+          + packing.pack_rows(v_new, bits=bits, group=group))
+  n = cache.k_pack.shape[2]
+  sel = (torch.arange(n, device=lengths.device)[None, :]
+         == lengths.long()[:, None])[:, None, :, None]        # (B, 1, N, 1)
+  return PackedExactLayerCache(*[
+      torch.where(sel, row[:, :, None, :].to(buf.dtype), buf)
+      for buf, row in zip(cache, rows)])
+
+
+def packed_exact_cache_append_and_attend(
+    cache: PackedExactLayerCache, q, k_new, v_new, length, scale: float,
+    bits: int, use_kernel: bool = False
+) -> Tuple[torch.Tensor, PackedExactLayerCache]:
+  """Contiguous packed decode step: quantize-insert the new row, then attend
+  over the dequantized store: with `use_kernel` the dequant widens through
+  K8 and K2 attends on the f32 store, else plain masked attention.  q (B,
+  Hq, D), k_new/v_new (B, H, D)."""
+  b, hq, d = q.shape
+  h = cache.k_pack.shape[1]
+  lengths = as_lengths(length, b, q.device)
+  cache = packed_insert_one(cache, k_new, v_new, lengths, bits)
+  k_c, v_c = packed_exact_dequant(cache, bits, use_kernel)   # (B, H, N, D)
+  qg = q.reshape(b, h, hq // h, d)
+  if use_kernel:
+    # K2 reads q in the store's type; f32 holds the bf16 q exactly, as the
+    # reference's kernel widens it
+    out = kops.flash_decode(qg.float(), k_c, v_c, lengths + 1, scale)
+  else:
+    n_max = k_c.shape[2]
+    mask = (torch.arange(n_max, device=q.device)[None, :]
+            < (lengths.long() + 1)[:, None])[:, None, :]      # (B, 1, N)
+    out = pq_attention.exact_decode_attention(qg, k_c, v_c, mask, scale)
+  return out.reshape(b, hq, d), cache
+
+
+def packed_exact_cache_paged_step(pool_leaves, layer: int, tables, q, k_new,
+                                  v_new, length, scale: float, bits: int):
+  """Block-table-native packed decode step: quantize the new row, write its
+  codes and headers into the mapped pool block in place, attend through K5
+  (pages decoded on load, never densified).
+
+  `pool_leaves` are the six pools in PackedExactLayerCache order, (P+1, L,
+  H, block, x) with x = d*bits/8 | G | G; tables (B, nb) int32.  The row
+  lands as in `exact_cache_paged_step` (`index_put_`, not accumulating; an
+  inactive slot aims at the trash block).  Returns (out (B, Hq, D), pools).
+  """
+  b, hq, d = q.shape
+  h = pool_leaves[0].shape[2]
+  block = pool_leaves[0].shape[3]
+  group = packing.group_size(d)
+  lengths = as_lengths(length, b, q.device)
+  ln = lengths.long()
+  pids = tables.long()[torch.arange(b, device=q.device), ln // block]
+  rows = ln % block
+  new = (packing.pack_rows(k_new, bits=bits, group=group)
+         + packing.pack_rows(v_new, bits=bits, group=group))
+  for pool, row in zip(pool_leaves, new):
+    pool[pids, layer, :, rows] = row.to(pool.dtype)
+  out = kops.packed_paged_flash_decode(
+      q.reshape(b, h, hq // h, d), *pool_leaves, tables, layer, lengths + 1,
+      scale, bits)
+  return out.reshape(b, hq, d), list(pool_leaves)
+
+
+# ---------------------------------------------------------------------------
 # PQ cache
 # ---------------------------------------------------------------------------
 
@@ -208,20 +339,21 @@ def pq_cache_init(b: int, h: int, d: int, cfg: PQCacheConfig,
   )
 
 
-def _build_body(kp, vp, wp, mask, cfg: PQCacheConfig):
+def _build_body(kp, vp, wp, mask, cfg: PQCacheConfig, use_kernel: bool):
   """Cluster and encode the padded body of K, then of V (in turn, so only
-  one of them holds k-means temporaries at a time)."""
-  k_cb, k_idx = windowed.windowed_build_codebooks(kp, wp, cfg.pq,
-                                                  cfg.n_windows, mask=mask)
+  one of them holds k-means temporaries at a time); every k-means
+  assignment runs through K6 with `use_kernel`."""
+  k_cb, k_idx = windowed.windowed_build_codebooks(
+      kp, wp, cfg.pq, cfg.n_windows, mask=mask, use_kernel=use_kernel)
   k_cb = k_cb.to(torch.bfloat16)
-  v_cb, v_idx = windowed.windowed_build_codebooks(vp, wp, cfg.pq,
-                                                  cfg.n_windows, mask=mask)
+  v_cb, v_idx = windowed.windowed_build_codebooks(
+      vp, wp, cfg.pq, cfg.n_windows, mask=mask, use_kernel=use_kernel)
   idt = index_storage_dtype(cfg)
   return (k_cb, v_cb.to(torch.bfloat16), k_idx.to(idt), v_idx.to(idt))
 
 
-def _pq_prefill_ragged(k, v, weights, lengths, cfg: PQCacheConfig
-                       ) -> PQLayerCache:
+def _pq_prefill_ragged(k, v, weights, lengths, cfg: PQCacheConfig,
+                       use_kernel: bool) -> PQLayerCache:
   """PQ prefill with per-request valid lengths (right-padded inputs); the
   reference's `_pq_prefill_one` with the batch written out.
 
@@ -254,7 +386,7 @@ def _pq_prefill_ragged(k, v, weights, lengths, cfg: PQCacheConfig
   body_n = torch.clamp(lengths - s0 - r, 0, nb)
   mask = (torch.arange(nb, device=dev)[None, :] < body_n[:, None])
   k_cb, v_cb, k_idx, v_idx = _build_body(
-      kp, vp, wp, mask[:, None, :].expand(b, h, nb), cfg)
+      kp, vp, wp, mask[:, None, :].expand(b, h, nb), cfg, use_kernel)
   return PQLayerCache(
       sink_k=k[:, :, :s0], sink_v=v[:, :, :s0],
       recent_k=ring(k), recent_v=ring(v),
@@ -263,15 +395,17 @@ def _pq_prefill_ragged(k, v, weights, lengths, cfg: PQCacheConfig
 
 
 def pq_cache_prefill(k, v, weights, cfg: PQCacheConfig,
-                     length: Optional[torch.Tensor] = None) -> PQLayerCache:
+                     length: Optional[torch.Tensor] = None,
+                     use_kernel: bool = False) -> PQLayerCache:
   """Compress a prefilled KV (B, H, N, D) into the PQ cache (paper Fig. 3a
   prefill step 3).  Body tokens are positions [sink, N - recent), placed at
   body offsets [0, N - sink - recent); `weights` (B, H, N) are the Eq. 1
-  importance weights; `length` (B,) per-request lengths or None for N."""
+  importance weights; `length` (B,) per-request lengths or None for N;
+  `use_kernel` runs the codebook build's assignments through K6."""
   b, h, n, d = k.shape
   if length is not None:
     return _pq_prefill_ragged(k, v, weights, as_lengths(length, b, k.device),
-                              cfg)
+                              cfg, use_kernel)
   s0, r, nb = cfg.sink, cfg.recent, cfg.body_capacity
   if n < s0 + r:
     raise ValueError(f"prefill length {n} < sink+recent {s0 + r}")
@@ -293,7 +427,8 @@ def pq_cache_prefill(k, v, weights, cfg: PQCacheConfig,
   body_w = torch.nn.functional.pad(weights[:, :, s0:n - r], (0, pad))
   mask = torch.arange(nb, device=dev) < body_n
   k_cb, v_cb, k_idx, v_idx = _build_body(body_k, body_v, body_w,
-                                         mask.expand(b, h, nb), cfg)
+                                         mask.expand(b, h, nb), cfg,
+                                         use_kernel)
   return PQLayerCache(
       sink_k=k[:, :, :s0], sink_v=v[:, :, :s0],
       recent_k=recent_k, recent_v=recent_v,

@@ -34,11 +34,13 @@ def build_codebook(
     cfg: PQConfig,
     mask: Optional[torch.Tensor] = None,
     init_codebook: Optional[torch.Tensor] = None,
+    use_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Learn a per-subvector weighted-kmeans codebook and encode x.
 
   x (..., N, d); weights (..., N); mask (..., N) or None; init_codebook
-  (..., m, K, dsub) warm start (windowed clustering) or None.
+  (..., m, K, dsub) warm start (windowed clustering) or None; `use_kernel`
+  runs every assignment through K6.
   Returns codebook (..., m, K, dsub) f32 and indices (..., N, m) int32.
   """
   m = cfg.m
@@ -49,14 +51,14 @@ def build_codebook(
     w = w.expand(xs.shape[:-1])
     mk = mk.expand(xs.shape[:-1]) if mk is not None else None
     codebook, idx = kmeans.weighted_kmeans(xs, w, k=cfg.k, iters=cfg.iters,
-                                           mask=mk)
+                                           mask=mk, use_kernel=use_kernel)
   else:
     if mk is not None:
       w = torch.where(mk, w, torch.zeros_like(w))
     w = w.expand(xs.shape[:-1])
+    assign = kmeans.assigner(use_kernel)
     codebook = init_codebook.float()
     for _ in range(cfg.iters):
-      codebook = kmeans.weighted_update(
-          xs, w, kmeans.assign_clusters(xs, codebook), codebook)
-    idx = kmeans.assign_clusters(xs, codebook)
+      codebook = kmeans.weighted_update(xs, w, assign(xs, codebook), codebook)
+    idx = assign(xs, codebook)
   return codebook, idx.transpose(-1, -2)

@@ -21,8 +21,10 @@ def windowed_build_codebooks(
     cfg: pq.PQConfig,
     n_windows: int,
     mask: Optional[torch.Tensor] = None,
+    use_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """Cluster (..., N, d) tokens into n_windows warm-started codebook pages.
+  """Cluster (..., N, d) tokens into n_windows warm-started codebook pages
+  (every k-means assignment through K6 with `use_kernel`).
 
   Returns codebooks (..., n_windows, m, K, dsub) f32 and indices (..., N, m)
   int32.
@@ -39,11 +41,12 @@ def windowed_build_codebooks(
   ms = mask.reshape(*lead, n_windows, w_len)
 
   cb, idx = pq.build_codebook(xs[..., 0, :, :], ws[..., 0, :], cfg,
-                              mask=ms[..., 0, :])
+                              mask=ms[..., 0, :], use_kernel=use_kernel)
   cbs, idxs = [cb], [idx]
   for i in range(1, n_windows):
     cb, idx = pq.build_codebook(xs[..., i, :, :], ws[..., i, :], cfg,
-                                mask=ms[..., i, :], init_codebook=cb)
+                                mask=ms[..., i, :], init_codebook=cb,
+                                use_kernel=use_kernel)
     cbs.append(cb)
     idxs.append(idx)
   return torch.stack(cbs, dim=-4), torch.cat(idxs, dim=-2)

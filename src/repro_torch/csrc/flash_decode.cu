@@ -35,8 +35,8 @@ struct DenseRows {
   const T* base;
   int n, d, capacity;
   __device__ __forceinline__ int length(const int* len, int bh) const { return len[bh]; }
-  __device__ __forceinline__ const T* row(int bh, int t) const {
-    return base + ((size_t)bh * n + t) * d;
+  __device__ __forceinline__ float value(int bh, int t, int dim) const {
+    return fdk::to_f32(base[((size_t)bh * n + t) * d + dim]);
   }
 };
 

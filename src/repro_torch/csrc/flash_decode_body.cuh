@@ -1,15 +1,18 @@
 // Shared device body of the flash-decode kernels K2 (`flash_decode.cu`,
-// dense K/V) and K4 (`paged_flash_decode.cu`, K/V pages read in place from a
-// block pool).  The two differ only in how a cached token's K/V row and a
-// row's length are addressed: the kernel is templated on a `Rows` type with
+// dense K/V), K4 (`paged_flash_decode.cu`, K/V pages read in place from a
+// block pool) and K5 (`packed_paged_flash_decode.cu`, packed pages
+// dequantized on load).  They differ only in how a cached token's K/V
+// element and a row's length are found: the kernel is templated on a `Rows`
+// type with
 //
-//   __device__ int length(const int* length, int bh) const;  // valid tokens
-//   __device__ const T* row(int bh, int t) const;            // d values
-//   int capacity;                                             // tokens a row holds
+//   __device__ int length(const int* length, int bh) const;     // valid tokens
+//   __device__ float value(int bh, int t, int dim) const;       // one element, f32
+//   int capacity;                                                // tokens a row holds
 //
-// so K2 keeps its arithmetic bit for bit and K4 adds only its page walk.
-// What the kernel computes and how its block is laid out: see the header of
-// `flash_decode.cu`.
+// so K2 keeps its arithmetic bit for bit, K4 adds only its page walk and K5
+// its decode of codes and f16 headers; on the f32 values K5 decodes, K4
+// gives the same bits.  What the kernel computes and how its block is laid
+// out: see the header of `flash_decode.cu`.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,9 +50,9 @@ inline size_t smem_bytes(int g, int d) {
   return b;
 }
 
-template <typename T, typename Rows>
+template <typename TQ, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, Rows krows, Rows vrows,
+flash_decode_kernel(const TQ* __restrict__ q, Rows krows, Rows vrows,
                     const int* __restrict__ length, float* __restrict__ out, int g,
                     int d, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -83,8 +86,8 @@ flash_decode_kernel(const T* __restrict__ q, Rows krows, Rows vrows,
     __syncthreads();  // previous tile fully consumed (and smem init visible)
     for (int i = tid; i < nv * d; i += kThreads) {
       const int t = i / d, dim = i - t * d;
-      k_s[t * ds + dim] = to_f32(krows.row(bh, n0 + t)[dim]);
-      v_s[t * ds + dim] = to_f32(vrows.row(bh, n0 + t)[dim]);
+      k_s[t * ds + dim] = krows.value(bh, n0 + t, dim);
+      v_s[t * ds + dim] = vrows.value(bh, n0 + t, dim);
     }
     __syncthreads();
 
@@ -155,16 +158,17 @@ flash_decode_kernel(const T* __restrict__ q, Rows krows, Rows vrows,
   }
 }
 
-// Launch one block per bh row on `stream`; returns cudaGetLastError().
-template <typename T, typename Rows>
+// Launch one block per bh row on `stream` (q of type TQ); returns
+// cudaGetLastError().
+template <typename TQ, typename Rows>
 int launch(const void* q, Rows krows, Rows vrows, const int* length, float* out, int bh,
            int g, int d, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(g, d);
-  auto kern = flash_decode_kernel<T, Rows>;
+  auto kern = flash_decode_kernel<TQ, Rows>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<bh, kThreads, smem, stream>>>(static_cast<const T*>(q), krows, vrows, length,
+  kern<<<bh, kThreads, smem, stream>>>(static_cast<const TQ*>(q), krows, vrows, length,
                                        out, g, d, scale);
   return (int)cudaGetLastError();
 }

@@ -39,12 +39,12 @@ struct PagedRows {
   __device__ __forceinline__ int length(const int* len, int bh) const {
     return len[bh / n_heads];
   }
-  __device__ __forceinline__ const T* row(int bh, int t) const {
+  __device__ __forceinline__ float value(int bh, int t, int dim) const {
     const int b = bh / n_heads, h = bh - b * n_heads;
     const int j = t / blk;
     const int page = tables[(size_t)b * nb + j];
-    return pool + page * page_stride + layer_off +
-           ((size_t)h * blk + (t - j * blk)) * d;
+    return fdk::to_f32(pool[page * page_stride + layer_off +
+                            ((size_t)h * blk + (t - j * blk)) * d + dim]);
   }
 };
 

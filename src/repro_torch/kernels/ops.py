@@ -1,11 +1,12 @@
-"""Batched wrappers around the decode kernels, in the layouts the caches use.
+"""Batched wrappers around the kernels, in the layouts the caches use.
 
-Port of `repro/kernels/ops.py` (dense and block-table-native decode): each
-wrapper folds (batch, kv head) into the kernels' BH axis and unfolds the
-result.  The block-table-native wrappers pass the (B, nb) tables and (B,)
-lengths through as they are: the kernels read row bh's request as bh // H
-and its head as bh % H, as the reference's `jnp.repeat(tables, h, axis=0)`
-plus `bh % n_heads` do.  The kernel modules decide per device: plain
+Port of `repro/kernels/ops.py` (dense, block-table-native and packed
+decode, the k-means assignment): each decode wrapper folds (batch, kv head)
+into the kernels' BH axis and unfolds the result; `kmeans_assign` folds
+every leading dimension into K6's R axis.  The block-table-native wrappers
+pass the (B, nb) tables and (B,) lengths through as they are: the kernels
+read row bh's request as bh // H and its head as bh % H, as the
+reference's `jnp.repeat(tables, h, axis=0)` plus `bh % n_heads` do.  The kernel modules decide per device: plain
 PyTorch on CPU tensors, the CUDA kernel on CUDA tensors.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import kmeans_assign as _k6
 from repro_torch.kernels import paged_flash_decode as _pfd
 from repro_torch.kernels import pq_decode as _pqd
 
@@ -108,6 +110,45 @@ def paged_flash_decode(
       tables.to(torch.int32).contiguous(), layer,
       length.to(torch.int32).contiguous(), scale)
   return out.reshape(b, h, g, d)
+
+
+def packed_paged_flash_decode(
+    q: torch.Tensor,        # (B, H_kv, g, d)
+    k_pack: torch.Tensor,   # (P+1, L, H_kv, blk, d*bits/8) uint8
+    k_scale: torch.Tensor,  # (P+1, L, H_kv, blk, G) f16
+    k_min: torch.Tensor,
+    v_pack: torch.Tensor,
+    v_scale: torch.Tensor,
+    v_min: torch.Tensor,
+    tables: torch.Tensor,   # (B, nb) int32
+    layer: int,
+    length: torch.Tensor,   # (B,) valid tokens per request
+    scale: float,
+    bits: int,
+) -> torch.Tensor:
+  """Block-table-native flash decode over sub-byte packed pooled K/V (exact
+  policy with `kv_resident_codec` q4/q5/q8): mapped pages are decoded on
+  load, never densified in device memory."""
+  b, h, g, d = q.shape
+  out = _pfd.packed_paged_flash_decode(
+      q.reshape(b * h, g, d).contiguous(), k_pack, k_scale, k_min, v_pack,
+      v_scale, v_min, tables.to(torch.int32).contiguous(), layer,
+      length.to(torch.int32).contiguous(), scale, bits)
+  return out.reshape(b, h, g, d)
+
+
+def kmeans_assign(
+    x: torch.Tensor,           # (..., N, dsub)
+    centroids: torch.Tensor,   # (..., K, dsub)
+) -> torch.Tensor:
+  """Nearest-centroid ids (..., N) int32 through K6, one launch for all
+  leading dims.  K6 drops ||x||^2 from the distance, so a near-tie may
+  resolve otherwise than `core.kmeans.assign_clusters` (ROADMAP C6)."""
+  n, dsub = x.shape[-2:]
+  k = centroids.shape[-2]
+  ids = _k6.kmeans_assign(x.reshape(-1, n, dsub).contiguous(),
+                          centroids.reshape(-1, k, dsub).contiguous())
+  return ids.reshape(x.shape[:-1])
 
 
 def combine_attention_segments(outs, maxes, denoms) -> torch.Tensor:

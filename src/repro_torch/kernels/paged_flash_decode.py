@@ -1,19 +1,24 @@
-"""K2 and K4: GQA flash decode (the exact policy's decode kernels).
+"""K2, K4 and K5: GQA flash decode (the exact policy's decode kernels).
 
 K2, `flash_decode`, ports `repro/kernels/paged_flash_decode.py::
 flash_decode_kernel` (dense K/V, the contiguous layout); K4,
 `paged_flash_decode`, ports `paged_flash_decode_kernel` (K/V pages read in
-place from the paged layout's pools through block tables).  Each wrapper
-takes its plain version (`*_plain`) for a CPU tensor, and for a CUDA tensor
-launches its kernel (`csrc/flash_decode.cu`, `csrc/paged_flash_decode.cu`;
-their headers say what bounds them on the H100 and how their design answers
-that) or raises.  There is no fallback from a kernel to its plain version.
-The packed variant (K5) is not ported yet (ROADMAP A7).
+place from the paged layout's pools through block tables); K5,
+`packed_paged_flash_decode`, ports `packed_paged_flash_decode_kernel` (the
+same over the packed resident store's code and f16 header pools, each
+element dequantized on load).  Each wrapper takes its plain version
+(`*_plain`) for a CPU tensor, and for a CUDA tensor launches its kernel
+(`csrc/flash_decode.cu`, `csrc/paged_flash_decode.cu`,
+`csrc/packed_paged_flash_decode.cu`; their headers say what bounds them on
+the H100 and how their design answers that) or raises.  There is no
+fallback from a kernel to its plain version.
 
-Shapes, as the TPU kernels: q (BH, g, d) in the cache dtype; K2 k, v
-(BH, N, d) with length (BH,) int32 valid tokens; K4 pools (P+1, L, H, blk, d)
-with tables (B, nb) int32, a Python-int layer and length (B,) int32, row bh
-reading request bh // H and head bh % H.  Returns (BH, g, d) f32.
+Shapes, as the TPU kernels: q (BH, g, d) in the cache dtype (K5: bf16 or
+f32); K2 k, v (BH, N, d) with length (BH,) int32 valid tokens; K4 pools
+(P+1, L, H, blk, d) with tables (B, nb) int32, a Python-int layer and length
+(B,) int32, row bh reading request bh // H and head bh % H; K5 six pools,
+codes (P+1, L, H, blk, d*bits/8) uint8 and scale, min (P+1, L, H, blk, G)
+f16 for each of K and V.  Returns (BH, g, d) f32.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.core import pq_attention as pqa
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, packing
 from repro_torch.kernels.pq_decode import check_paged
 
 SMEM_LIMIT = 232448            # bytes of shared memory one H100 block may use
@@ -98,17 +103,21 @@ flash_decode.launches = 0
 # K4: K/V pages read in place from the block pools
 # ---------------------------------------------------------------------------
 
+def _dense_pages(pool, tables, layer: int) -> torch.Tensor:
+  """The table-mapped pages of plane `layer` of a pool (P+1, L, H, blk, w)
+  as dense (B * H, nb * blk, w) rows."""
+  pages = pool[:, layer][tables.long()]            # (B, nb, H, blk, w)
+  b, nb, h, blk, w = pages.shape
+  return pages.permute(0, 2, 1, 3, 4).reshape(b * h, nb * blk, w)
+
+
 def paged_flash_decode_plain(q, k_pool, v_pool, tables, layer: int, length,
                              scale: float) -> torch.Tensor:
   """Plain PyTorch version of K4: gather the table-mapped pages of plane
   `layer` into dense (BH, nb * blk, d) K/V and run K2's plain version."""
   n_heads = k_pool.shape[2]
-
-  def dense(pool):
-    pages = pool[:, layer][tables.long()]          # (B, nb, H, blk, d)
-    b, nb, h, blk, d = pages.shape
-    return pages.permute(0, 2, 1, 3, 4).reshape(b * h, nb * blk, d)
-  return flash_decode_plain(q, dense(k_pool), dense(v_pool),
+  return flash_decode_plain(q, _dense_pages(k_pool, tables, layer),
+                            _dense_pages(v_pool, tables, layer),
                             length.repeat_interleave(n_heads), scale)
 
 
@@ -171,3 +180,104 @@ def paged_flash_decode(q, k_pool, v_pool, tables, layer: int, length,
 
 
 paged_flash_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: packed pages (codes + f16 scale/min) dequantized on load
+# ---------------------------------------------------------------------------
+
+def packed_paged_flash_decode_plain(q, k_pack, k_scale, k_min, v_pack,
+                                    v_scale, v_min, tables, layer: int,
+                                    length, scale: float,
+                                    bits: int) -> torch.Tensor:
+  """Plain PyTorch version of K5: gather the table-mapped pages of plane
+  `layer`, dequantize them with `packing.dequant_page` and run K2's plain
+  version on the f32 values."""
+  n_heads = k_pack.shape[2]
+  group = q.shape[-1] // k_scale.shape[4]
+
+  def dense(pack, sc, mn):
+    return packing.dequant_page(
+        _dense_pages(pack, tables, layer), _dense_pages(sc, tables, layer),
+        _dense_pages(mn, tables, layer), bits=bits, group=group)
+  return flash_decode_plain(q, dense(k_pack, k_scale, k_min),
+                            dense(v_pack, v_scale, v_min),
+                            length.repeat_interleave(n_heads), scale)
+
+
+def _lib_packed() -> ctypes.CDLL:
+  lib = _build.load("packed_paged_flash_decode")
+  fn = lib.packed_paged_flash_decode_launch
+  fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+                 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+  fn.restype = ctypes.c_int
+  lib.packed_paged_flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 2
+  lib.packed_paged_flash_decode_smem_bytes.restype = ctypes.c_size_t
+  lib.packed_paged_flash_decode_max_outputs.restype = ctypes.c_int
+  return lib
+
+
+def packed_paged_flash_decode(q, k_pack, k_scale, k_min, v_pack, v_scale,
+                              v_min, tables, layer: int, length, scale: float,
+                              bits: int) -> torch.Tensor:
+  """K5 wrapper: plain version on CPU tensors, the CUDA kernel on CUDA
+  tensors (or an error).  Counts its kernel launches in `.launches`."""
+  bh, g, d = q.shape
+  packs, headers = (k_pack, v_pack), (k_scale, k_min, v_scale, v_min)
+  check_paged("K5", bh, packs, tables, layer, length)
+  check_paged("K5", bh, headers, tables, layer, length)
+  if bits not in (4, 5, 8) or (bits == 5 and d % 8) or d % 2:
+    raise ValueError(f"K5 takes bits 4, 5 or 8 (5 with d % 8 == 0), got "
+                     f"bits={bits}, d={d}")
+  n_groups = k_scale.shape[4]
+  if k_pack.shape[:4] != k_scale.shape[:4] or d % n_groups:
+    raise ValueError(f"K5: code pools {tuple(k_pack.shape)} and header pools "
+                     f"{tuple(k_scale.shape)} do not match d={d}")
+  if k_pack.shape[4] != packing.packed_width(d, bits):
+    raise ValueError(f"K5: code rows {k_pack.shape[4]} != "
+                     f"{packing.packed_width(d, bits)} bytes for d={d} at "
+                     f"{bits} bits")
+  if q.device.type == "cpu":
+    return packed_paged_flash_decode_plain(
+        q, k_pack, k_scale, k_min, v_pack, v_scale, v_min, tables, layer,
+        length, scale, bits)
+  tensors = (q, *packs, *headers, tables, length)
+  if any(t.device != q.device for t in tensors):
+    raise ValueError("all K5 inputs must be on one device")
+  _build.require_sm90(q.device)
+  if q.dtype not in _DTYPE_CODES:
+    raise TypeError(f"q must be bf16 or f32, got {q.dtype}")
+  if k_pack.dtype != torch.uint8 or k_scale.dtype != torch.float16:
+    raise TypeError(f"K5 pools must be uint8 codes and f16 headers, got "
+                    f"{k_pack.dtype}, {k_scale.dtype}")
+  if tables.dtype != torch.int32 or length.dtype != torch.int32:
+    raise TypeError(f"tables and length must be int32, got {tables.dtype}, "
+                    f"{length.dtype}")
+  if not all(t.is_contiguous() for t in tensors):
+    raise ValueError("K5 inputs must be contiguous")
+  lib = _lib_packed()
+  if g * d > lib.packed_paged_flash_decode_max_outputs():
+    raise ValueError(f"K5 takes g*d <= "
+                     f"{lib.packed_paged_flash_decode_max_outputs()}, got "
+                     f"g={g}, d={d}")
+  smem = lib.packed_paged_flash_decode_smem_bytes(g, d)
+  if smem > SMEM_LIMIT:
+    raise ValueError(f"K5 needs {smem} B of shared memory; a block has "
+                     f"{SMEM_LIMIT}")
+  _, n_layers, n_heads, blk, _ = k_pack.shape
+  out = torch.empty((bh, g, d), dtype=torch.float32, device=q.device)
+  err = lib.packed_paged_flash_decode_launch(
+      _DTYPE_CODES[q.dtype], bits, q.data_ptr(), k_pack.data_ptr(),
+      k_scale.data_ptr(), k_min.data_ptr(), v_pack.data_ptr(),
+      v_scale.data_ptr(), v_min.data_ptr(), tables.data_ptr(),
+      length.data_ptr(), out.data_ptr(), bh, g, d, n_heads, blk,
+      tables.shape[1], n_layers, int(layer), n_groups, float(scale),
+      torch.cuda.current_stream(q.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"packed_paged_flash_decode kernel launch failed: "
+                       f"CUDA error {err}")
+  packed_paged_flash_decode.launches += 1
+  return out
+
+
+packed_paged_flash_decode.launches = 0

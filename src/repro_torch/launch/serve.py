@@ -13,6 +13,9 @@ layout and scheduler.
       --cache-layout paged --scheduler paged --cache-policy pq \
       --batch 4 --prompt-len 1024 --gen 32
 
+`--kv-resident-codec q4` (or q5, q8) makes the exact policy store its KV as
+packed codes plus f16 headers, in both modes.
+
 Runs on the card unless `--device cpu` is given; without a card and without
 that flag it raises.  Weights and prompts are random, made from `--seed`.
 With `pq` this runs the AQPIM path: prefill builds the compressed cache
@@ -31,6 +34,7 @@ import torch
 from repro_torch.common.timing import Stopwatch, latency_percentiles_ms
 from repro_torch.common.types import resolve_device
 from repro_torch.configs import get_arch
+from repro_torch.kernels import packing
 from repro_torch.models.model import Model
 
 
@@ -42,6 +46,7 @@ class ServeRun:
   prompt_len: int = 128
   gen: int = 32
   cache_policy: str = "pq"
+  kv_resident_codec: str = "none"  # exact-policy resident store (packing)
   decode_kernel: str = "auto"      # core/decode_dispatch key
   device: str = "cuda"
   measure_latency: bool = True     # the extra synced decode pass for p50/p99
@@ -53,6 +58,7 @@ class ServeRun:
     dev = resolve_device(self.device)
     cfg = get_arch(self.arch, reduced=self.reduced)
     cfg = dataclasses.replace(cfg, cache_policy=self.cache_policy,
+                              kv_resident_codec=self.kv_resident_codec,
                               decode_kernel=self.decode_kernel)
     model = Model(cfg, context_len=self.prompt_len + self.gen, device=dev)
     return model.init(torch.Generator(device=dev).manual_seed(self.seed))
@@ -115,6 +121,7 @@ class ServeRun:
         "decode_step_p50_ms": lat["p50_ms"],
         "decode_step_p99_ms": lat["p99_ms"],
         "cache_policy": policy_name,
+        "kv_resident_codec": cfg.kv_resident_codec,
         "decode_kernel": model.cache_policy.effective_decode_kernel,
         "pq": policy_name == "pq",
         "device": (torch.cuda.get_device_name(model.device)
@@ -132,6 +139,7 @@ def build_engine(args):
                             cache_layout=args.cache_layout,
                             scheduler=args.scheduler,
                             kv_block_size=args.block_size,
+                            kv_resident_codec=args.kv_resident_codec,
                             decode_kernel=args.decode_kernel)
   context = args.prompt_len + args.gen
   if args.cache_layout == "paged":
@@ -227,6 +235,12 @@ def make_parser() -> argparse.ArgumentParser:
   ap.add_argument("--prompt-len", type=int, default=128)
   ap.add_argument("--gen", type=int, default=32)
   ap.add_argument("--cache-policy", choices=("exact", "pq"), default="pq")
+  ap.add_argument("--kv-resident-codec", default="none",
+                  choices=tuple(packing.RESIDENT_CODECS),
+                  help="exact-policy resident KV store: none keeps dense "
+                       "floats; q4/q5/q8 store packed codes + f16 headers "
+                       "(kernels/packing.py), about 0.19x the fp32 "
+                       "footprint at q4")
   ap.add_argument("--decode-kernel", choices=("auto", "cuda", "torch"),
                   default="auto")
   ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -259,10 +273,12 @@ def main(argv=None):
   run = ServeRun(arch=args.arch, reduced=args.reduced, batch=args.batch,
                  prompt_len=args.prompt_len, gen=args.gen,
                  cache_policy=args.cache_policy,
+                 kv_resident_codec=args.kv_resident_codec,
                  decode_kernel=args.decode_kernel, device=args.device,
                  seed=args.seed)
   res = run.run()
   print(f"arch={args.arch} policy={res['cache_policy']} "
+        f"codec={res['kv_resident_codec']} "
         f"kernel={res['decode_kernel']} device={res['device']} "
         f"prefill={res['prefill_s']:.2f}s decode={res['decode_s']:.2f}s "
         f"({res['tok_per_s']:.1f} tok/s, step p50 "

@@ -2,7 +2,9 @@
 
 The block-table-native kernels (K3, K4) are also held bit for bit to their
 dense counterparts (K1, K2) on the gathered dense view: they share one
-device body and differ only in how a token's row is addressed.
+device body and differ only in how a token's row is addressed.  K5 is held
+bit for bit to K4 run on the f32 pools its plain dequant produces; K6 and
+K8 to their plain versions exactly.
 
 Marked `cuda`: without a card every test skips.  This file imports no JAX,
 so it also runs on a machine that has only PyTorch:
@@ -16,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import kmeans_assign as t_k6
+from repro_torch.kernels import packing as t_pk
 from repro_torch.kernels import paged_flash_decode as t_pfd
 from repro_torch.kernels import pq_decode as t_pqd
 
@@ -172,6 +176,81 @@ def test_cuda_paged_flash_decode_matches_plain_and_k2(cuda_device, geometry,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [gm[:10] for gm in PAGED_GEOMETRIES[::2]])
+@pytest.mark.parametrize("bits", [4, 5, 8])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_packed_paged_flash_decode_matches_plain_and_k4(
+    cuda_device, geometry, bits, q_dtype):
+  b, h, g, d, _, _, blk, nb, n_layers, layer = geometry
+  dev = cuda_device
+  gen = torch.Generator(device=dev).manual_seed(9)
+  pool_blocks = 4 * nb
+  cap = nb * blk
+  lengths = ([cap, 0, 1, cap - blk + 5] * b)[:b]
+  tables, ln = _paged_inputs(gen, dev, b, nb, blk, pool_blocks, lengths)
+  q = torch.randn(b * h, g, d, generator=gen, device=dev).to(q_dtype)
+  group = t_pk.group_size(d)
+  pools = []
+  for _ in range(2):
+    x = torch.randn(pool_blocks + 1, n_layers, h, blk, d, generator=gen,
+                    device=dev)
+    pools += list(t_pk.pack_rows(x, bits=bits, group=group))
+  before = t_pfd.packed_paged_flash_decode.launches
+  out = t_pfd.packed_paged_flash_decode(q, *pools, tables, layer, ln,
+                                        d ** -0.5, bits)
+  plain = t_pfd.packed_paged_flash_decode_plain(q, *pools, tables, layer, ln,
+                                                d ** -0.5, bits)
+  torch.cuda.synchronize()
+  assert t_pfd.packed_paged_flash_decode.launches == before + 1
+  torch.testing.assert_close(out, plain, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+  assert torch.all(out[h:2 * h] == 0)
+  # K4 on the f32 pools of the plain dequant runs the same device body
+  kf = t_pk.dequant_page(*pools[:3], bits=bits, group=group)
+  vf = t_pk.dequant_page(*pools[3:], bits=bits, group=group)
+  out4 = t_pfd.paged_flash_decode(q.float(), kf, vf, tables, layer, ln,
+                                  d ** -0.5)
+  assert torch.equal(out, out4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,k,dsub", [
+    (512, 1024, 512, 2),     # the serve path's prefill: B*H*m, body, K
+    (128, 1024, 512, 2),     # an engine admission (batch 1)
+    (8, 300, 16, 4),         # reduced tinyllama, a ragged N
+    (3, 100, 64, 16),
+])
+@pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+def test_cuda_kmeans_assign_matches_plain(cuda_device, r, n, k, dsub, dtypes):
+  dev = cuda_device
+  gen = torch.Generator(device=dev).manual_seed(10)
+  x = torch.randn(r, n, dsub, generator=gen, device=dev).to(dtypes[0])
+  c = torch.randn(r, k, dsub, generator=gen, device=dev).to(dtypes[1])
+  before = t_k6.kmeans_assign.launches
+  got = t_k6.kmeans_assign(x, c)
+  want = t_k6.kmeans_assign_plain(x, c)
+  torch.cuda.synchronize()
+  assert t_k6.kmeans_assign.launches == before + 1
+  assert got.dtype == torch.int32 and got.shape == (r, n)
+  assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dp", [(4 * 4 * 1056, 32), (1, 8), (1000, 4)])
+def test_cuda_unpack_u4_matches_plain(cuda_device, n, dp):
+  dev = cuda_device
+  gen = torch.Generator(device=dev).manual_seed(11)
+  p = torch.randint(0, 256, (n, dp), generator=gen, device=dev,
+                    dtype=torch.int32).to(torch.uint8)
+  before = t_pk.unpack_u4_kernel.launches
+  got = t_pk.unpack_u4_kernel(p)
+  torch.cuda.synchronize()
+  assert t_pk.unpack_u4_kernel.launches == before + 1
+  assert torch.equal(got, t_pk.unpack_u4(p))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
   dev = cuda_device
   q = torch.zeros(2, 2, 16, device=dev)
@@ -192,3 +271,14 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
   with pytest.raises(TypeError, match="Python int"):
     t_pfd.paged_flash_decode(q, pool, pool, tables.int(),
                              torch.tensor(0, device=dev), ln[:1], 0.25)
+  x = torch.zeros(2, 8, 3, device=dev)
+  with pytest.raises(ValueError, match="dsub"):
+    t_k6.kmeans_assign(x, torch.zeros(2, 4, 3, device=dev))
+  with pytest.raises(ValueError, match="contiguous"):
+    t_pk.unpack_u4_kernel(torch.zeros(4, 8, dtype=torch.uint8,
+                                      device=dev)[:, ::2])
+  codes = torch.zeros(3, 2, 2, 4, 8, dtype=torch.uint8, device=dev)
+  hdr = torch.zeros(3, 2, 2, 4, 1, dtype=torch.float16, device=dev)
+  with pytest.raises(ValueError, match="code rows"):
+    t_pfd.packed_paged_flash_decode(q, codes, hdr, hdr, codes, hdr, hdr,
+                                    tables.int(), 0, ln[:1], 0.25, 5)

@@ -66,6 +66,30 @@ def test_engine_cli_on_cpu_prints_requests_and_writes_stats(tmp_path,
   assert stats["requests"] == res["requests"]
 
 
+@pytest.mark.parametrize("mode", ["serve-run", "engine"])
+def test_cli_kv_resident_codec_serves_the_packed_store(mode, tmp_path):
+  """`--kv-resident-codec q4` reaches the policy in both modes: the exact
+  policy serves its packed store and the stats report it."""
+  base = ARGS if mode == "serve-run" else ENGINE_ARGS
+  stats = {}
+  for codec in ("none", "q4"):
+    path = tmp_path / f"{codec}.json"
+    serve.main(base + ["--device", "cpu", "--cache-policy", "exact",
+                       "--kv-resident-codec", codec, "--stats-json",
+                       str(path)])
+    stats[codec] = json.loads(path.read_text())
+  if mode == "serve-run":
+    assert stats["q4"]["kv_resident_codec"] == "q4"
+    assert len(stats["q4"]["tokens"][0]) == 4
+  else:
+    by = {c: st["kv_bytes"] for c, st in stats.items()}
+    assert by["q4"]["kv_resident_codec"] == "q4"
+    # reduced tinyllama, d = 16: 8 code bytes + 4 header bytes per row
+    # against 64 f32 bytes, for K and V
+    assert by["q4"]["block_bytes"] * 64 == by["none"]["block_bytes"] * 12
+    assert stats["q4"]["finished"] == 4
+
+
 def test_engine_cli_without_device_flag_needs_a_card():
   if torch.cuda.is_available():
     pytest.skip("a card is present: the default device is valid here")
