@@ -4,36 +4,50 @@
 
 Needs one CUDA card (built for an H100, sm_90a) and the CUDA toolkit.  It
 
-  1. builds the decode kernels from `src/repro_torch/csrc/` (one `nvcc` per
+  1. builds the kernels from `src/repro_torch/csrc/` (one `nvcc` per
      source, all started together) into `build/repro_torch/`;
   2. holds each kernel against its plain PyTorch version on the card at the
      full-width shapes its path gives it (K1/K2 the contiguous serve path,
      K3/K4/K5 the paged engine path: layer 21 of 22, shuffled block tables
-     with trash entries, ragged lengths; K6 the pq prefill's k-means; K8
-     the contiguous q4 store) and times kernel, plain version, the bound
-     and (where one exists) a single PyTorch library call;
+     with trash entries, ragged lengths; K6 the pq prefill's k-means; K7 the
+     prefill attention of `ServeRun` and of an engine admission, a ragged N,
+     a non-causal and an f32 case; K8 the contiguous q4 store) and times
+     kernel, plain version, the bound and (where one exists) a single
+     PyTorch library call;
   3. serves full-width tinyllama-1.1b (random bf16 weights from a seed)
      through `ServeRun` with the `pq` policy, the `exact` policy and the
      `exact` policy on its packed q4 store, batch 4, prompt 1024, 16
-     generated tokens, and checks from the launch counters that every layer
-     of every decode step ran its kernels (K1; K2; K8 and K2) and every
-     k-means assignment of every pq prefill ran K6;
+     generated tokens, and the four baselines (`streamingllm`, `skvq`,
+     `snapkv`, `pqcache`) with 4 generated tokens, and `exact` once more
+     at prompt 1000 (a length no tile or block divides), and checks from the
+     launch counters that every layer of every prefill ran K7, every layer
+     of every decode step ran its kernels (K1; K2; K8 and K2; none for the
+     baselines but `pqcache`'s index build through K6) and every k-means
+     assignment of every pq prefill ran K6;
   4. serves it through the continuous-batching `ServeEngine` on the paged
      layout with the paged scheduler (the `--engine` CLI demo: 6 requests of
      1024 down to 939 prompt tokens, 16 new tokens each, 4 slots), for
-     `pq`, `exact`, `exact` on the packed q4 store, and `pq` with a pool cut
-     so the scheduler must preempt, and checks that every layer of every
-     decode step ran K3, K4 or K5 and every admission's prefill ran K6;
-  5. from one prefilled cache per policy, runs 4 teacher-forced decode steps
-     with the `cuda` and the `torch` dispatch and compares the logits, on
-     the contiguous layout (`Model.decode_step`) and on the paged layout
-     (block-native program against the dense gather program); for `pq`
-     also from each dispatch's own prefill (K6 against the plain k-means);
+     `pq`, `exact`, `exact` on the packed q4 store, `pq` with a pool cut
+     so the scheduler must preempt, and `streamingllm` (window 512: blocks
+     that age out are freed), and checks that every layer of every
+     admission's prefill ran K7, every decode step K3, K4 or K5 (the
+     baseline: the dense gather program, no kernel) and every pq admission
+     K6;
+  5. parity, cuda against torch dispatch: prefill logits of `pq`,
+     `exact` (prompts of 1024 and of 1000), `exact` q4 and `snapkv`, and
+     `Model.forward` logits of one
+     1024-token sequence (K7 against the plain attention); from one
+     prefilled cache per policy, 4 teacher-forced decode steps on the
+     contiguous layout (`Model.decode_step`) and on the paged layout
+     (block-native program against the dense gather program); for `pq` and
+     `snapkv` also from each dispatch's own prefill (K6 and K7 against the
+     plain versions);
   6. profiles 3 decode steps per policy and layout (`torch.profiler`):
      device busy share and the kernels that take the device time.
 
 Every check that fails raises, so the script exits non-zero.  The last line
-is a JSON object naming the device; the line before it lists the kernels.
+is a JSON object naming the device; the line before it the card's name and
+power limit, and the one before that lists the kernels.
 """
 from __future__ import annotations
 
@@ -52,6 +66,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 ARCH = "tinyllama-1.1b"
 BATCH, PROMPT, GEN = 4, 1024, 16
+BASELINES = ("streamingllm", "skvq", "snapkv", "pqcache")
+BASELINE_GEN = 4
+# a prompt that no 64-row tile or 512-token block divides: its prefill must
+# run K7 in every layer all the same
+RAGGED_PROMPT = 1000
+RAGGED_LABEL = f"exact prompt {RAGGED_PROMPT}"
 PARITY_STEPS = 4
 N_LAYERS = 22
 # k-means assignments per pq prefill: (iters 4 + 1) per codebook, K and V,
@@ -77,6 +97,13 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 # Kernel vs plain version, both f32 accumulation over the same bf16 inputs;
 # only the order of the f32 sums differs.
 KERNEL_ATOL = 1e-4
+# K7 is held to its plain version element by element within
+# `flash_attention.kernel_error_bound`: for bf16 inputs 2^-8 x the plain
+# attention of |v| (P rounded to bf16 for the PV product) + 2^-7 x |plain|
+# (the output's bf16 rounding) + 1e-5, at most 3e-2 (the reference's bf16
+# limit); for f32 inputs (FMA, no TF32) 1e-5.
+# pqcache's index build: (iters 4 + 1) assignments per layer per decode step
+K6_PER_PQCACHE_STEP = 5 * N_LAYERS
 # Logits of the cuda vs torch dispatch: the models run in bf16, so an f32
 # difference of 1e-6 in one attention output can flip a bf16 rounding (2^-8
 # relative) that 22 layers carry to the logits.
@@ -488,10 +515,82 @@ def kmeans_kernel_phase(dev, tag) -> dict:
   return res
 
 
+def flash_kernel_phase(dev, tag) -> dict:
+  """K7 against its plain version on the card: `ServeRun`'s prefill (batch
+  4) and an engine admission (batch 1) at full width (Hq 32, Hkv 4, N 1024,
+  d 64, bf16, causal), a ragged N (1000), a non-causal and an f32 case.
+  Each is timed beside its bound, the plain version and SDPA (with GQA, on
+  the same inputs; timed only, the port never calls it)."""
+  from repro_torch.kernels import flash_attention as k7
+
+  gen = torch.Generator(device=dev).manual_seed(4)
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  hq, hkv, d = 32, 4, 64
+  scale = d ** -0.5
+  cases = []
+  for label, b, n, causal, dtype in (
+      ("serve prefill", BATCH, PROMPT, True, torch.bfloat16),
+      ("engine admission", 1, PROMPT, True, torch.bfloat16),
+      ("ragged N", 1, 1000, True, torch.bfloat16),
+      ("non-causal", BATCH, PROMPT, False, torch.bfloat16),
+      ("f32", 1, PROMPT, True, torch.float32)):
+    q = torch.randn(b, hq, n, d, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(b, hkv, n, d, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    got = k7.flash_attention(q, k, v, scale, causal)
+    want = k7.flash_attention_plain(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    if got.dtype != dtype or not torch.isfinite(got).all():
+      raise AssertionError(f"K7 {label}: bad output {got.dtype}")
+    tol = k7.kernel_error_bound(q, k, v, scale, causal, want)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    # the largest share of its element's bound that any element uses
+    share = float((diff / tol).max())
+    tol_max, tol_med = float(tol.max()), float(tol.median())
+    if not share <= 1.0:
+      raise AssertionError(f"K7 {label}: error exceeds its bound ({share:.3f}"
+                           f" of it; max abs err {err})")
+    ms = cuda_time_ms(lambda: k7.flash_attention(q, k, v, scale, causal))
+    plain_ms = cuda_time_ms(lambda: k7.flash_attention_plain(
+        q, k, v, scale, causal), iters=10)
+    library_ms = cuda_time_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                           scale=scale, enable_gqa=True))
+    pairs = n * (n + 1) // 2 if causal else n * n
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    b_ms, b_by = bound(nbytes, 4 * b * hq * d * pairs, dtype)
+    cases.append(dict(case=label, shape=[b, hq, hkv, n, d],
+                      dtype=str(dtype).replace("torch.", ""), causal=causal,
+                      max_abs_err=err, tolerance_share=share,
+                      tolerance_max=tol_max, tolerance_median=tol_med, ms=ms,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      library_ms=library_ms))
+    print(f"{tag} K7 flash_attention {label} (B {b}, Hq {hq}, Hkv {hkv}, N "
+          f"{n}, d {d}, {cases[-1]['dtype']}, causal {causal}): max_abs_err "
+          f"{err:.3e}, {share:.4f} of its bound at worst (bound median "
+          f"{tol_med:.3e}, max {tol_max:.3e}) kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} B) "
+          f"library (sdpa) {library_ms:.4f} ms")
+    del q, k, v, got, want, tol, diff
+  serve = cases[0]
+  return {"flash_attention": dict(
+      name="flash_attention", route="cuda",
+      source="src/repro_torch/csrc/flash_attention.cu",
+      replaces="src/repro/kernels/flash_attention.py:75",
+      max_abs_err=max(c["max_abs_err"] for c in cases),
+      tolerance="flash_attention.kernel_error_bound",
+      tolerance_share=max(c["tolerance_share"] for c in cases),
+      ms=serve["ms"],
+      plain_ms=serve["plain_ms"], bound_ms=serve["bound_ms"],
+      bound_by=serve["bound_by"], library_ms=serve["library_ms"],
+      cases=cases)}
+
+
 def launch_counters() -> dict:
   """Every kernel wrapper, by the name the kernels line uses."""
   from repro_torch.kernels import paged_flash_decode as pfd
   from repro_torch.kernels import pq_decode as pqd
+  from repro_torch.kernels import flash_attention as k7
   from repro_torch.kernels import kmeans_assign as k6
   from repro_torch.kernels import packing
   return {"pq_decode_attention": pqd.pq_decode_attention,
@@ -500,27 +599,36 @@ def launch_counters() -> dict:
           "paged_flash_decode": pfd.paged_flash_decode,
           "packed_paged_flash_decode": pfd.packed_paged_flash_decode,
           "kmeans_assign": k6.kmeans_assign,
+          "flash_attention": k7.flash_attention,
           "unpack_u4": packing.unpack_u4_kernel}
 
 
 def serve_phase(dev, tag) -> dict:
   """Full-width serve through ServeRun; counters prove the kernels ran:
-  every layer of every decode step its decode kernels (K1; K2; K8 twice, for
-  K and V, then K2), every k-means assignment of every pq prefill K6."""
+  every layer of every prefill K7, every layer of every decode step its
+  decode kernels (K1; K2; K8 twice, for K and V, then K2; the baselines
+  none, but `pqcache` rebuilds its index through K6), every k-means
+  assignment of every pq prefill K6.  Keeps the models the parity phase
+  compares (the baselines' but snapkv's are dropped)."""
   from repro_torch.launch.serve import ServeRun
 
   counters = launch_counters()
-  steps = 1 + 2 * GEN          # warmup step, timed loop, latency pass
   prefills = 3                 # warmup, timed, latency pass
-  per_step = {"pq": {"pq_decode_attention": 1},
-              "exact": {"flash_decode": 1},
-              "exact q4": {"flash_decode": 1, "unpack_u4": 2}}
+  per_step = {"pq": {"pq_decode_attention": N_LAYERS},
+              "exact": {"flash_decode": N_LAYERS},
+              RAGGED_LABEL: {"flash_decode": N_LAYERS},
+              "exact q4": {"flash_decode": N_LAYERS, "unpack_u4": 2 * N_LAYERS},
+              "pqcache": {"kmeans_assign": K6_PER_PQCACHE_STEP}}
+  runs = [("pq", "pq", "none", GEN, PROMPT),
+          ("exact", "exact", "none", GEN, PROMPT),
+          ("exact q4", "exact", CODEC, GEN, PROMPT),
+          (RAGGED_LABEL, "exact", "none", BASELINE_GEN, RAGGED_PROMPT)]
+  runs += [(name, name, "none", BASELINE_GEN, PROMPT) for name in BASELINES]
   models, launches = {}, {name: 0 for name in counters}
-  for label, policy, codec in (("pq", "pq", "none"),
-                               ("exact", "exact", "none"),
-                               ("exact q4", "exact", CODEC)):
-    run = ServeRun(arch=ARCH, reduced=False, batch=BATCH, prompt_len=PROMPT,
-                   gen=GEN, cache_policy=policy, kv_resident_codec=codec,
+  for label, policy, codec, gen, prompt in runs:
+    steps = 1 + 2 * gen        # warmup step, timed loop, latency pass
+    run = ServeRun(arch=ARCH, reduced=False, batch=BATCH, prompt_len=prompt,
+                   gen=gen, cache_policy=policy, kv_resident_codec=codec,
                    decode_kernel="auto", device=str(dev), seed=0)
     model = run.build()
     cfg = model.cfg
@@ -530,8 +638,9 @@ def serve_phase(dev, tag) -> dict:
     res = run.run(model)
     peak = torch.cuda.max_memory_allocated(dev)
     grew = {name: c.launches for name, c in counters.items()}
-    want = {name: steps * cfg.n_layers * per_step[label].get(name, 0)
+    want = {name: steps * per_step.get(label, {}).get(name, 0)
             for name in counters}
+    want["flash_attention"] = prefills * cfg.n_layers
     if policy == "pq":
       want["kmeans_assign"] = prefills * K6_PER_PREFILL
     if grew != want:
@@ -539,25 +648,32 @@ def serve_phase(dev, tag) -> dict:
                            f"({steps} decode steps x {cfg.n_layers} layers, "
                            f"{prefills} prefills)")
     toks = res["tokens"]
-    if toks.shape != (BATCH, GEN) or toks.min() < 0 or \
+    if toks.shape != (BATCH, gen) or toks.min() < 0 or \
         toks.max() >= cfg.vocab_size:
       raise AssertionError(f"{label}: bad tokens {toks.shape}")
-    if res["decode_kernel"] != "cuda":
+    decode = "torch" if policy in BASELINES else "cuda"
+    if res["decode_kernel"] != decode:
       raise AssertionError(f"{label}: decode ran {res['decode_kernel']}")
     if codec != "none" and type(model.cache_policy).__name__ != \
         "PackedExactPolicy":
       raise AssertionError(f"{label}: served {model.cache_policy!r}")
     cache_bytes = sum(t.nbytes for t in model.init_cache(BATCH)[0]) * \
         cfg.n_layers
+    policy_bytes = model.cache_policy.bytes(BATCH, cfg.n_kv_heads,
+                                            cfg.head_dim)
     ran = ", ".join(f"{n} {grew[n]}" for n in counters if grew[n])
     print(f"{tag} serve {label}: prefill {res['prefill_s']:.4f} s decode "
           f"{res['tok_per_s']:.2f} tok/s step p50 "
           f"{res['decode_step_p50_ms']:.4f} ms p99 "
           f"{res['decode_step_p99_ms']:.4f} ms peak mem "
           f"{peak / 2**30:.3f} GiB, KV store {cache_bytes} B, kernel "
-          f"launches {ran} ({steps} steps x {cfg.n_layers} layers)")
+          f"launches {ran} ({steps} steps x {cfg.n_layers} layers, "
+          f"{prefills} prefills)")
+    print(f"{tag} serve {label} bytes(): {json.dumps(policy_bytes)}")
     print(f"{tag} serve {label} sample tokens: {toks[0].tolist()}")
-    models[label] = (run, model)
+    if policy not in BASELINES or policy == "snapkv":
+      models[label] = (run, model)
+    del model
     for name in counters:
       launches[name] += grew[name]
   return models, launches
@@ -565,20 +681,26 @@ def serve_phase(dev, tag) -> dict:
 
 def engine_phase(tag) -> dict:
   """Full-width continuous batching on the paged layout through the engine
-  CLI's demo; counters prove every layer of every decode step (warm-up
-  request included) ran K3 (pq), K4 (exact) or K5 (exact q4) and nothing
-  else, and every admission's pq prefill ran K6 in every assignment."""
+  CLI's demo; counters prove every layer of every admission's prefill
+  (warm-up request included) ran K7, every layer of every decode step ran
+  K3 (pq), K4 (exact) or K5 (exact q4) and nothing else, and every pq
+  admission ran K6 in every assignment.  `streamingllm` has no decode
+  kernel: it takes the dense gather program, and its 512-token window must
+  free the blocks that age out."""
   from repro_torch.launch import serve
 
   counters = launch_counters()
   kernel_of = {"pq": "pq_decode_attention_paged",
                "exact": "paged_flash_decode",
-               "exact q4": "packed_paged_flash_decode"}
+               "exact q4": "packed_paged_flash_decode",
+               "pq preempt": "pq_decode_attention_paged",
+               "streamingllm": None}
   launches = {name: 0 for name in counters}
   for label, policy, extra in (
       ("pq", "pq", []), ("exact", "exact", []),
       ("exact q4", "exact", ["--kv-resident-codec", CODEC]),
-      ("pq preempt", "pq", ["--num-blocks", str(PREEMPT_BLOCKS)])):
+      ("pq preempt", "pq", ["--num-blocks", str(PREEMPT_BLOCKS)]),
+      ("streamingllm", "streamingllm", [])):
     args = serve.make_parser().parse_args(
         ENGINE_ARGS + ["--cache-policy", policy] + extra)
     for c in counters.values():
@@ -586,17 +708,20 @@ def engine_phase(tag) -> dict:
     res = serve.run_engine_demo(args)
     grew = {name: c.launches for name, c in counters.items()}
     steps = res["decode_steps"] + res["warmup_decode_steps"]
-    kernel = kernel_of[label.replace(" preempt", "")]
+    kernel = kernel_of[label]
     want = {name: (steps * N_LAYERS if name == kernel else 0)
             for name in counters}
     prefills = res["admits"] + 1             # the warm-up request's too
+    want["flash_attention"] = prefills * N_LAYERS
     if policy == "pq":
       want["kmeans_assign"] = prefills * K6_PER_PREFILL
     if grew != want:
       raise AssertionError(f"engine {label}: kernel launches {grew} != "
                            f"{want} ({steps} decode steps x {N_LAYERS} "
                            f"layers, {prefills} prefills)")
-    if (res["decode_kernel"], res["decode_path"]) != ("cuda", "block-native"):
+    path = ("torch", "dense-gather") if kernel is None else \
+        ("cuda", "block-native")
+    if (res["decode_kernel"], res["decode_path"]) != path:
       raise AssertionError(f"engine {label}: decode ran {res['decode_kernel']}"
                            f" {res['decode_path']}")
     reqs = res["requests"]
@@ -608,16 +733,20 @@ def engine_phase(tag) -> dict:
     if "preempt" in label and res["preempts"] < 1:
       raise AssertionError(f"engine {label}: {PREEMPT_BLOCKS} blocks did "
                            f"not force a preemption")
+    if policy == "streamingllm" and res["blocks_reclaimed"] < 1:
+      raise AssertionError("engine streamingllm: no block aged out of the "
+                           "window")
     lat, by = res["decode_latency"], res["layout_bytes"]
+    ran = ", ".join(f"{n} {grew[n]}" for n in counters if grew[n])
     print(f"{tag} engine {label}: {res['tok_per_s']:.2f} tok/s "
           f"({sum(len(r['tokens']) for r in reqs)} tokens in "
           f"{res['wall_s']:.4f} s), decode step p50 {lat['p50_ms']} ms p99 "
           f"{lat['p99_ms']} ms over {lat['steps']} steps, occupancy "
           f"{100 * res['occupancy']:.1f}%, preempts {res['preempts']}, peak "
           f"{by['peak_blocks']}/{by['num_blocks']} blocks of "
-          f"{by['block_bytes']} B, {kernel} launches {grew[kernel]} "
-          f"({steps} steps x {N_LAYERS} layers), kmeans_assign launches "
-          f"{grew['kmeans_assign']} ({prefills} prefills)")
+          f"{by['block_bytes']} B, blocks freed {res['blocks_reclaimed']}, "
+          f"{res['decode_path']} decode, kernel launches {ran} ({steps} "
+          f"steps x {N_LAYERS} layers, {prefills} prefills)")
     print(f"{tag} engine {label} decode traffic: "
           f"{json.dumps(res['decode_traffic'])}")
     for name in counters:
@@ -625,29 +754,65 @@ def engine_phase(tag) -> dict:
   return launches
 
 
+def _swapped(model, policy, fn):
+  """fn() with `policy` as the model's cache policy (the dispatch it runs)."""
+  keep = model.cache_policy
+  model.cache_policy = policy
+  try:
+    return fn()
+  finally:
+    model.cache_policy = keep
+
+
+def _logit_parity(lc, lt, label, tag) -> None:
+  """cuda logits `lc` against torch logits `lt`: within LOGIT_ATOL, and the
+  same argmax wherever the torch side's top-2 margin exceeds it."""
+  lc, lt = lc.float(), lt.float()
+  if not torch.isfinite(lc).all():
+    raise AssertionError(f"{label}: non-finite logits")
+  worst = float((lc - lt).abs().max())
+  top2 = torch.topk(lt, 2, dim=-1).values
+  decisive = (top2[..., 0] - top2[..., 1]) > LOGIT_ATOL
+  if (torch.argmax(lc, -1) != torch.argmax(lt, -1))[decisive].any():
+    raise AssertionError(f"{label}: decisive tokens differ")
+  if not worst <= LOGIT_ATOL:
+    raise AssertionError(f"{label}: cuda vs torch logits differ by {worst} "
+                         f"> {LOGIT_ATOL}")
+  print(f"{tag} parity {label}: cuda vs torch dispatch, max |dlogit| "
+        f"{worst:.4f} (tol {LOGIT_ATOL}) over {lc.numel() // lc.shape[-1]} "
+        f"rows, {int(decisive.sum())} decisive tokens equal")
+
+
 def parity_phase(models, tag) -> None:
-  """cuda vs torch dispatch from one prefilled cache, teacher-forced; for pq
-  also from each dispatch's own prefill (K6 against the plain k-means)."""
+  """cuda vs torch dispatch: each policy's prefill logits (K7, and K6 for
+  pq, against the plain versions); `Model.forward` logits of one sequence
+  of PROMPT tokens; teacher-forced decode from one prefilled cache, and for
+  pq and snapkv from each dispatch's own prefill."""
   for policy, (run, model) in models.items():
     cfg = model.cfg
-    cuda_policy = model.cache_policy
     torch_policy = dataclasses.replace(
         cfg, decode_kernel="torch").make_cache_policy(model.context_len,
                                                       model.device)
     prompts = run.prompts(cfg.vocab_size).to(model.device)
     logits, cache = model.prefill(prompts)
-    tok = torch.argmax(logits, -1)
-    variants = [("", cache, cache)]
-    if cfg.cache_policy == "pq":
-      model.cache_policy = torch_policy
-      try:
-        _, cache_t = model.prefill(prompts)
-      finally:
-        model.cache_policy = cuda_policy
-      variants.append((" (own prefills: K6 vs plain k-means)", cache, cache_t))
-    for note, cache_c, cache_t in variants:
-      _teacher_forced(model, cuda_policy, torch_policy, tok, cache_c, cache_t,
-                      f"{policy}{note}", tag)
+    logits_t, cache_t = _swapped(model, torch_policy,
+                                 lambda: model.prefill(prompts))
+    _logit_parity(logits, logits_t, f"{policy} prefill (K7)", tag)
+    if policy == "exact":
+      seq = prompts[:1]
+      fc, _ = model.forward(seq)
+      ft, _ = _swapped(model, torch_policy, lambda: model.forward(seq))
+      _logit_parity(fc, ft, f"Model.forward ({seq.shape[1]} tokens, K7)",
+                    tag)
+      del fc, ft
+    tok = torch.argmax(logits_t, -1)
+    variants = [] if policy == "snapkv" else [("", cache, cache)]
+    if policy in ("pq", "snapkv"):
+      note = "K6 and K7" if policy == "pq" else "K7"
+      variants.append((f" (own prefills: {note} vs plain)", cache, cache_t))
+    for note, cache_c, cache_tf in variants:
+      _teacher_forced(model, model.cache_policy, torch_policy, tok, cache_c,
+                      cache_tf, f"{policy}{note}", tag)
 
 
 def _teacher_forced(model, cuda_policy, torch_policy, tok, cache_c, cache_t,
@@ -838,6 +1003,7 @@ def main() -> int:
   kernels.update(paged_kernel_phase(dev, tag))
   kernels.update(packed_kernel_phase(dev, tag))
   kernels.update(kmeans_kernel_phase(dev, tag))
+  kernels.update(flash_kernel_phase(dev, tag))
   print(f"{tag} kernel phase {time.monotonic() - t0:.2f} s")
   t0 = time.monotonic()
   models, serve_launches = serve_phase(dev, tag)

@@ -148,8 +148,12 @@ class ModelConfig:
     spec = cache_api.CacheSpec(
         capacity=context_len, head_dim=self.head_dim, dtype=self.dtype,
         sink=self.pq_sink, recent=self.pq_recent,
+        # the streaming window is clamped to small contexts (window ==
+        # capacity keeps everything, the same behaviour)
+        window=min(self.stream_window, context_len),
         block=(self.kv_block_size
                if self.cache_layout in ("paged", "tiered") else 0),
+        spill_codec=self.spill_codec,
         kv_resident_codec=self.kv_resident_codec,
         decode_kernel=self.decode_kernel, device=str(device),
         pq=self.pq_cache_config(context_len) if name == "pq" else None)

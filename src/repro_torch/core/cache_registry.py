@@ -5,9 +5,10 @@
     policy = cache_registry.make("pq", spec)
     layout = cache_registry.make_layout("paged", model, max_batch)
 
-Policies `exact` and `pq` and layouts `contiguous` and `paged` are
-registered.  The reference's other keys raise `NotImplementedError` naming
-the ROADMAP item that ports them.
+Every policy of the reference is registered (`exact`, `pq`, `pqcache`,
+`skvq`, `snapkv`, `streamingllm`), and the layouts `contiguous` and `paged`;
+the `tiered` layout raises `NotImplementedError` naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -16,9 +17,6 @@ from typing import Callable, Dict, Tuple
 _REGISTRY: Dict[str, type] = {}
 _LAYOUTS: Dict[str, type] = {}
 
-_UNPORTED = {
-    "skvq": "A8", "snapkv": "A8", "streamingllm": "A8", "pqcache": "A8",
-}
 _UNPORTED_LAYOUTS = {"tiered": "A9"}
 
 
@@ -35,10 +33,6 @@ def register(name: str) -> Callable[[type], type]:
 
 def get(name: str) -> type:
   _ensure_builtin()
-  if name in _UNPORTED:
-    raise NotImplementedError(
-        f"cache policy {name!r} is not ported to repro_torch yet (ROADMAP "
-        f"{_UNPORTED[name]})")
   try:
     return _REGISTRY[name]
   except KeyError:

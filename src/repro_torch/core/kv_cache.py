@@ -318,6 +318,20 @@ def index_storage_dtype(cfg: PQCacheConfig) -> torch.dtype:
   return torch.uint8 if cfg.pq.k <= 256 else torch.int16
 
 
+def pq_cache_bytes(cfg: PQCacheConfig, b: int, h: int, d: int) -> dict:
+  """Target-hardware byte accounting (bf16 exact rows, 16-bit codebooks,
+  indices of `index_bytes`), as the reference's."""
+  fp = 2
+  exact = (cfg.sink + cfg.recent) * d * fp * 2
+  cb = cfg.n_windows * cfg.pq.m * cfg.pq.k * (d // cfg.pq.m) * fp * 2
+  idx = cfg.body_capacity * cfg.pq.m * cfg.pq.index_bytes() * 2
+  per_head = exact + cb + idx
+  equivalent_exact = cfg.capacity() * d * fp * 2
+  return dict(per_head_bytes=per_head, total_bytes=per_head * b * h,
+              equivalent_exact_bytes=equivalent_exact * b * h,
+              reduction_ratio=equivalent_exact / per_head)
+
+
 def pq_cache_init(b: int, h: int, d: int, cfg: PQCacheConfig,
                   dtype=torch.bfloat16, device="cpu") -> PQLayerCache:
   m, k = cfg.pq.m, cfg.pq.k

@@ -21,6 +21,10 @@ class PQConfig:
   k: int = 512                # centroids per subvector codebook
   iters: int = 4              # k-means iterations (fixed; paper §III-B)
 
+  def index_bytes(self) -> int:
+    """Bytes per index on target hardware (uint8 if K <= 256 else int16)."""
+    return 1 if self.k <= 256 else 2
+
 
 def split(x: torch.Tensor, m: int) -> torch.Tensor:
   """(..., N, d) -> (..., N, m, dsub)."""

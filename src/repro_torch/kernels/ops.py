@@ -1,13 +1,14 @@
 """Batched wrappers around the kernels, in the layouts the caches use.
 
 Port of `repro/kernels/ops.py` (dense, block-table-native and packed
-decode, the k-means assignment): each decode wrapper folds (batch, kv head)
-into the kernels' BH axis and unfolds the result; `kmeans_assign` folds
-every leading dimension into K6's R axis.  The block-table-native wrappers
-pass the (B, nb) tables and (B,) lengths through as they are: the kernels
-read row bh's request as bh // H and its head as bh % H, as the
-reference's `jnp.repeat(tables, h, axis=0)` plus `bh % n_heads` do.  The kernel modules decide per device: plain
-PyTorch on CPU tensors, the CUDA kernel on CUDA tensors.
+decode, the k-means assignment, flash attention): each decode wrapper folds
+(batch, kv head) into the kernels' BH axis and unfolds the result;
+`kmeans_assign` folds every leading dimension into K6's R axis.  The
+block-table-native wrappers pass the (B, nb) tables and (B,) lengths
+through as they are: the kernels read row bh's request as bh // H and its
+head as bh % H, as the reference's `jnp.repeat(tables, h, axis=0)` plus
+`bh % n_heads` do.  The kernel modules decide per device: plain PyTorch on
+CPU tensors, the CUDA kernel on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _k7
 from repro_torch.kernels import kmeans_assign as _k6
 from repro_torch.kernels import paged_flash_decode as _pfd
 from repro_torch.kernels import pq_decode as _pqd
@@ -149,6 +151,19 @@ def kmeans_assign(
   ids = _k6.kmeans_assign(x.reshape(-1, n, dsub).contiguous(),
                           centroids.reshape(-1, k, dsub).contiguous())
   return ids.reshape(x.shape[:-1])
+
+
+def flash_attention(
+    q: torch.Tensor,        # (B, Hq, N, d)
+    k: torch.Tensor,        # (B, Hkv, N, d)
+    v: torch.Tensor,        # (B, Hkv, N, d)
+    scale: float,
+    causal: bool = True,
+) -> torch.Tensor:
+  """Blockwise flash attention through K7 (any N; GQA by h // (Hq/Hkv)).
+  Returns (B, Hq, N, d) in q's dtype."""
+  return _k7.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             scale, causal)
 
 
 def combine_attention_segments(outs, maxes, denoms) -> torch.Tensor:

@@ -11,13 +11,14 @@ recompute preemption).
       print(done.rid, done.tokens)
     print(engine.stats.summary())
 
-- What is cached is the `CachePolicy` codec (`cfg.cache_policy`: exact or
-  AQPIM pq).
+- What is cached is the `CachePolicy` codec (`cfg.cache_policy`: exact,
+  AQPIM pq, or a baseline: streamingllm, skvq, snapkv, pqcache).
 - Where it lives is the `CacheLayout` (`cache_layout=`): `contiguous`
   capacity-sized slabs per slot, or `paged` fixed-size token blocks from a
   shared pool with per-request block tables.  With the `cuda` dispatch the
-  paged layout decodes block-table-native through kernels K3 (pq) and K4
-  (exact).
+  paged layout decodes block-table-native through kernels K3 (pq), K4
+  (exact) and K5 (exact, packed); the baselines take the dense gather
+  program, and `streamingllm` frees the blocks that age out of its window.
 - Who runs next is the `Scheduler` (`scheduler=`): `fifo`, `sjf`, or `paged`
   (admit-on-available-blocks, preempt-and-requeue on pool exhaustion: a
   preempted request is prefilled again from its prompt and, under greedy
@@ -31,7 +32,9 @@ that decoded nothing (occupancy, wasted slot-steps), admits and preempts.
 Not ported here: the tiered layout and swap preemption (ROADMAP A9), the
 prefix cache (A10), the virtual clock and SLO control (A11), fault
 injection and snapshots (A12), and mesh sharding (A13).  Their constructor
-arguments raise `NotImplementedError` when set.
+arguments raise `NotImplementedError` when set, and so does a config that
+asks for the prefix cache.  `cfg.host_blocks` is read by the tiered layout
+only, in the reference too, so the other layouts ignore it.
 """
 from __future__ import annotations
 
@@ -90,7 +93,7 @@ class EngineStats:
   admits: int = 0
   preempts: int = 0              # recompute preemptions (tokens regenerated)
   finished: int = 0
-  blocks_reclaimed: int = 0      # ring-reuse frees (no ported policy frees)
+  blocks_reclaimed: int = 0      # ring-reuse frees (streamingllm's window)
   prefill_tokens: int = 0        # prompt tokens prefilled
   # wall clock per batched decode step (launch -> next-token sync); bounded
   # to the most recent window of samples
@@ -176,6 +179,10 @@ class ServeEngine:
         raise NotImplementedError(
             f"ServeEngine({name}=...) is not ported to repro_torch yet "
             f"(ROADMAP {_UNPORTED_ARGS[name]})")
+    if cfg.prefix_cache or cfg.prefix_cache_blocks is not None:
+      raise NotImplementedError(
+          "cfg.prefix_cache / cfg.prefix_cache_blocks: the prefix cache is "
+          "not ported to repro_torch yet (ROADMAP A10)")
     if cfg.family != "dense" or cfg.frontend != "none":
       raise ValueError(
           f"ServeEngine serves the dense family without modal streams, got "

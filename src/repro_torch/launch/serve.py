@@ -14,7 +14,9 @@ layout and scheduler.
       --batch 4 --prompt-len 1024 --gen 32
 
 `--kv-resident-codec q4` (or q5, q8) makes the exact policy store its KV as
-packed codes plus f16 headers, in both modes.
+packed codes plus f16 headers, in both modes.  `--cache-policy` takes every
+registered policy: `exact`, `pq`, and the baselines `streamingllm`, `skvq`,
+`snapkv`, `pqcache`.
 
 Runs on the card unless `--device cpu` is given; without a card and without
 that flag it raises.  Weights and prompts are random, made from `--seed`.
@@ -34,6 +36,7 @@ import torch
 from repro_torch.common.timing import Stopwatch, latency_percentiles_ms
 from repro_torch.common.types import resolve_device
 from repro_torch.configs import get_arch
+from repro_torch.core import cache_registry
 from repro_torch.kernels import packing
 from repro_torch.models.model import Model
 
@@ -234,7 +237,8 @@ def make_parser() -> argparse.ArgumentParser:
   ap.add_argument("--batch", type=int, default=4)
   ap.add_argument("--prompt-len", type=int, default=128)
   ap.add_argument("--gen", type=int, default=32)
-  ap.add_argument("--cache-policy", choices=("exact", "pq"), default="pq")
+  ap.add_argument("--cache-policy", choices=cache_registry.names(),
+                  default="pq")
   ap.add_argument("--kv-resident-codec", default="none",
                   choices=tuple(packing.RESIDENT_CODECS),
                   help="exact-policy resident KV store: none keeps dense "

@@ -1,5 +1,6 @@
-"""Transformer layers: RMSNorm, split-half RoPE, chunked causal attention,
-GQA projections and the SiLU-gated MLP (port of `repro.models.layers`).
+"""Transformer layers: RMSNorm, split-half RoPE, causal attention (plain,
+or K7 through the dispatch), GQA projections and the SiLU-gated MLP (port of
+`repro.models.layers`).
 
 Parameters are mappings of tensors in the reference's layouts (`wq`
 (D, H, hd), `wo` (H, hd, D), `w_gate` (D, F), ...).  Compute runs in the
@@ -12,7 +13,8 @@ from typing import Tuple
 
 import torch
 
-NEG_INF = -1e30
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import ops as kops
 
 
 # ---------------------------------------------------------------------------
@@ -76,54 +78,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 # ---------------------------------------------------------------------------
-# Chunked causal attention (plain PyTorch flash) -- the prefill attention
+# Causal attention over the full sequence: the prefill and forward attention
 # ---------------------------------------------------------------------------
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: float, blk: int = 512) -> torch.Tensor:
-  """Blockwise causal online-softmax attention, never materialising (S, S)
-  scores (the prefill attention; the reference's `chunked_attention` with
-  causal=True and equal q/k blocks).
+  """Blockwise causal online-softmax attention in plain PyTorch, never
+  materialising (S, S) scores (the reference's `chunked_attention` with
+  causal=True and equal q/k blocks of `blk`; any S).
 
-  q (B, Hq, S, d), k/v (B, Hkv, S, d); GQA by grouping q as (B, Hkv, g, S, d).
-  Key blocks entirely above the causal diagonal of a query block are skipped:
-  they would add exactly zero (alpha = 1, p = 0).
+  q (B, Hq, S, d), k/v (B, Hkv, S, d).  This is K7's plain version with
+  causal=True.
   """
-  b, hq, sq, d = q.shape
-  hkv, sk = k.shape[1], k.shape[2]
-  g = hq // hkv
-  blk_q = min(blk, sq)
-  blk_k = min(blk, sk)
-  dev = q.device
-  qg = q.reshape(b, hkv, g, sq, d)
-  outs = []
-  for q0 in range(0, sq, blk_q):
-    q_blk = qg[:, :, :, q0:q0 + blk_q].float()
-    nq = q_blk.shape[3]
-    qpos = q0 + torch.arange(blk_q, device=dev)[:nq]
-    acc = torch.zeros((b, hkv, g, nq, d), device=dev)
-    m_i = torch.full((b, hkv, g, nq), NEG_INF, device=dev)
-    l_i = torch.zeros((b, hkv, g, nq), device=dev)
-    for k0 in range(0, sk, blk_k):
-      if k0 > q0 + nq - 1:
-        break
-      k_blk = k[:, :, k0:k0 + blk_k].float()
-      v_blk = v[:, :, k0:k0 + blk_k].float()
-      s_blk = torch.einsum("bhgqd,bhkd->bhgqk", q_blk, k_blk) * scale
-      kpos = k0 + torch.arange(k_blk.shape[2], device=dev)
-      mask = kpos[None, :] <= qpos[:, None]
-      s_blk = torch.where(mask, s_blk, torch.full_like(s_blk, NEG_INF))
-      mu = torch.amax(s_blk, dim=-1)
-      m_new = torch.maximum(m_i, mu)
-      alpha = torch.exp(m_i - m_new)
-      p = torch.exp(s_blk - m_new[..., None])
-      l_i = alpha * l_i + torch.sum(p, dim=-1)
-      acc = alpha[..., None] * acc + torch.einsum("bhgqk,bhkd->bhgqd", p,
-                                                  v_blk)
-      m_i = m_new
-    outs.append(acc / torch.clamp_min(l_i, 1e-30)[..., None])
-  out = torch.cat(outs, dim=3)
-  return out.reshape(b, hq, sq, d).to(q.dtype)
+  return kflash.flash_attention_plain(q, k, v, scale, causal=True, blk=blk)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, blk: int, use_kernel: bool
+                     ) -> torch.Tensor:
+  """Causal attention over the full sequence: K7 under the `cuda` dispatch
+  (`use_kernel`; it masks a ragged last tile itself, so any S), else
+  `chunked_attention` in blocks of `blk`."""
+  if use_kernel:
+    return kops.flash_attention(q, k, v, scale, causal=True)
+  return chunked_attention(q, k, v, scale, blk)
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +123,16 @@ def attention_qkv(params, x: torch.Tensor, positions: torch.Tensor,
 def attention_out(params, attn: torch.Tensor) -> torch.Tensor:
   """attn (B, H, S, hd) -> (B, S, D)."""
   return torch.einsum("bhsk,hkd->bsd", attn, params["wo"])
+
+
+def self_attention(params, x: torch.Tensor, positions: torch.Tensor,
+                   scale: float, rope_theta: float, blk: int = 512,
+                   use_kernel: bool = False) -> torch.Tensor:
+  """Causal self-attention of the forward pass (no cache): x (B, S, D) ->
+  (B, S, D), routed by `causal_attention`."""
+  q, k, v = attention_qkv(params, x, positions, rope_theta)
+  return attention_out(params,
+                       causal_attention(q, k, v, scale, blk, use_kernel))
 
 
 def mlp(params, x: torch.Tensor) -> torch.Tensor:

@@ -3,6 +3,7 @@ for the dense family).
 
   model = Model(cfg, context_len, device="cuda")
   model.init(generator)                                # random weights
+  logits, aux = model.forward(tokens)                  # (B, S, V), no cache
   logits, caches = model.prefill(tokens)               # builds (PQ) caches
   logits, caches = model.decode_step(token, caches, lengths)
   logits, res, pools = model.decode_step_paged(token, res, pools, tables,
@@ -67,6 +68,22 @@ class Model(nn.Module):
   def _logits(self, x: torch.Tensor) -> torch.Tensor:
     x = layers.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
     return torch.matmul(x, self.lm_head)
+
+  @torch.no_grad()
+  def forward(self, tokens: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S) tokens -> (logits (B, S, V), aux 0.0 f32: the dense family
+    has no MoE load-balance loss).  Inference only: the flash backward and
+    `train_loss` are not ported (ROADMAP A15).  Its attention runs K7 under
+    the `cuda` dispatch."""
+    tokens = tokens.to(self.device)
+    x = layers.embed_lookup(self.embed, tokens)
+    positions = torch.arange(tokens.shape[1], device=self.device)[None, :]
+    use_kernel = self.cache_policy.dispatch.use_kernel
+    for blk in self.layers:
+      x = tfm.dense_block_forward(blk, x, positions, self.cfg, use_kernel)
+    return self._logits(x), torch.zeros((), dtype=torch.float32,
+                                        device=self.device)
 
   @torch.no_grad()
   def prefill(self, tokens: torch.Tensor,

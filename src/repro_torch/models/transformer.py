@@ -1,13 +1,16 @@
-"""Dense decoder block with its cache modes (port of the dense paths of
+"""Dense decoder block with its call modes (port of the dense paths of
 `repro.models.transformer`):
 
-  - prefill    : full sequence, returns the layer's cache (exact or PQ)
+  - forward    : full sequence, no cache (`Model.forward`)
+  - prefill    : full sequence, returns the layer's cache (any policy)
   - step       : single-token decode against the layer cache
   - step_paged : single-token decode reading pooled block storage in place
 
 For the PQ policy, prefill is where the paper's clustering runs: the Eq. 1
 importance weights come from the same q/k, and the windowed weighted k-means
-compresses the body, layer by layer.
+compresses the body, layer by layer.  Under the `cuda` dispatch the
+full-sequence attention of both forward and prefill runs K7, at any
+sequence length (`layers.causal_attention`).
 """
 from __future__ import annotations
 
@@ -61,11 +64,15 @@ def _attn_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg, policy,
                   lengths=None) -> Tuple[torch.Tensor, Any]:
   """Attention over the full sequence AND this layer's KV cache.
 
-  `lengths` (B,) marks true prompt lengths for right-padded batches.
+  `lengths` (B,) marks true prompt lengths for right-padded batches.  The
+  attention runs K7 under the `cuda` dispatch (for every policy: the
+  baselines' decode has no kernel, their prefill does) and plain
+  `chunked_attention` under `torch`.
   """
   scale = cfg.head_dim ** -0.5
   q, k, v = layers.attention_qkv(p, x, positions, cfg.rope_theta)
-  attn = layers.chunked_attention(q, k, v, scale, blk=cfg.attn_block)
+  attn = layers.causal_attention(q, k, v, scale, cfg.attn_block,
+                                 policy.dispatch.use_kernel)
   out = layers.attention_out(p, attn)
 
   w = None
@@ -114,6 +121,18 @@ def _attn_step_paged(p, x: torch.Tensor, resident, pools, layer: int,
       resident, pools, layer, tables, q, k, v, lengths)
   out = torch.einsum("bhk,hkd->bd", attn.to(x.dtype), p["wo"])
   return out[:, None, :], resident, pools
+
+
+def dense_block_forward(p: DenseBlock, x: torch.Tensor, positions, cfg,
+                        use_kernel: bool) -> torch.Tensor:
+  """One decoder layer over the full sequence, no cache (the reference's
+  dense `dense_block_forward`; forward only, no MoE, so no aux loss)."""
+  h = layers.rmsnorm(p.ln1, x, cfg.norm_eps)
+  x = x + layers.self_attention(p.attn, h, positions, cfg.head_dim ** -0.5,
+                                cfg.rope_theta, blk=cfg.attn_block,
+                                use_kernel=use_kernel)
+  h = layers.rmsnorm(p.ln2, x, cfg.norm_eps)
+  return x + layers.mlp(p.mlp, h)
 
 
 def dense_block_prefill(p: DenseBlock, x: torch.Tensor, positions, cfg,

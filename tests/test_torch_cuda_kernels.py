@@ -4,7 +4,13 @@ The block-table-native kernels (K3, K4) are also held bit for bit to their
 dense counterparts (K1, K2) on the gathered dense view: they share one
 device body and differ only in how a token's row is addressed.  K5 is held
 bit for bit to K4 run on the f32 pools its plain dequant produces; K6 and
-K8 to their plain versions exactly.
+K8 to their plain versions exactly.  K7 (flash attention, the prefill's)
+is held to its plain version element by element within
+`flash_attention.kernel_error_bound`: for bf16 inputs 2^-8 x the plain
+attention of |v| (the kernel rounds P to bf16 before the PV product) +
+2^-7 |plain| (both outputs round to bf16) + 1e-5, at most 3e-2 (the bf16
+limit of `tests/test_kernels.py`), for f32 1e-5 (FMA on the
+CUDA cores, no TF32; the sums in another order).
 
 Marked `cuda`: without a card every test skips.  This file imports no JAX,
 so it also runs on a machine that has only PyTorch:
@@ -18,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as t_k7
 from repro_torch.kernels import kmeans_assign as t_k6
 from repro_torch.kernels import packing as t_pk
 from repro_torch.kernels import paged_flash_decode as t_pfd
@@ -251,6 +258,38 @@ def test_cuda_unpack_u4_matches_plain(cuda_device, n, dp):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,n,d", [
+    (4, 32, 4, 1024, 64),     # ServeRun's prefill, tinyllama-1.1b
+    (1, 32, 4, 1024, 64),     # an engine admission
+    (1, 32, 4, 1000, 64),     # a ragged N
+    (2, 4, 2, 48, 16),        # reduced tinyllama
+    (1, 8, 1, 200, 128),      # MQA, head dim 128
+    (2, 6, 6, 192, 32),       # MHA
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_attention_matches_plain(cuda_device, b, hq, hkv, n, d,
+                                            causal, dtype):
+  dev = cuda_device
+  gen = torch.Generator(device=dev).manual_seed(12)
+  q = torch.randn(b, hq, n, d, generator=gen, device=dev).to(dtype)
+  k, v = (torch.randn(b, hkv, n, d, generator=gen, device=dev).to(dtype)
+          for _ in range(2))
+  before = t_k7.flash_attention.launches
+  got = t_k7.flash_attention(q, k, v, d ** -0.5, causal)
+  want = t_k7.flash_attention_plain(q, k, v, d ** -0.5, causal)
+  torch.cuda.synchronize()
+  assert t_k7.flash_attention.launches == before + 1
+  assert got.dtype == dtype and got.shape == q.shape
+  assert torch.isfinite(got).all()
+  diff = (got.float() - want.float()).abs()
+  excess = diff - t_k7.kernel_error_bound(q, k, v, d ** -0.5, causal, want)
+  assert float(excess.max()) <= 0.0, (
+      f"{int((excess > 0).sum())} elements exceed the bound, worst by "
+      f"{float(excess.max())}; max abs err {float(diff.max())}")
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
   dev = cuda_device
   q = torch.zeros(2, 2, 16, device=dev)
@@ -282,3 +321,13 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
   with pytest.raises(ValueError, match="code rows"):
     t_pfd.packed_paged_flash_decode(q, codes, hdr, hdr, codes, hdr, hdr,
                                     tables.int(), 0, ln[:1], 0.25, 5)
+  qa = torch.zeros(1, 4, 8, 16, device=dev)
+  kv = torch.zeros(1, 2, 8, 16, device=dev)
+  with pytest.raises(TypeError, match="share"):
+    t_k7.flash_attention(qa, kv.bfloat16(), kv.bfloat16(), 0.25)
+  with pytest.raises(ValueError, match="head dim"):
+    t_k7.flash_attention(qa[..., :8].contiguous(), kv[..., :8].contiguous(),
+                         kv[..., :8].contiguous(), 0.25)
+  with pytest.raises(ValueError, match="contiguous"):
+    t_k7.flash_attention(qa.transpose(2, 3).contiguous().transpose(2, 3), kv,
+                         kv, 0.25)

@@ -94,3 +94,60 @@ def test_engine_serves_a_built_model():
   assert a.tokens == b.tokens and len(a.tokens) == 4
   with pytest.raises(ValueError, match="context"):
     TEngine(cfg, context_len=112, max_batch=2, model=first.model)
+
+
+# ---------------------------------------------------------------------------
+# Config fields the reference reads on the serve path (ROADMAP C8): each is
+# either read as the reference reads it or refused naming its ROADMAP item.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("field,value", [("prefix_cache", True),
+                                         ("prefix_cache_blocks", 8)])
+def test_config_prefix_cache_is_refused_naming_a10(field, value):
+  cfg = dataclasses.replace(t_get_arch(ARCH, reduced=True),
+                            cache_layout="paged", **{field: value})
+  with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    TEngine(cfg, context_len=96, max_batch=2, device="cpu")
+
+
+def test_config_spill_codec_is_validated_as_the_reference():
+  from repro.configs import get_arch as j_get_arch
+  base = t_get_arch(ARCH, reduced=True)
+  msg = r"spill_codec must be one of \('int8', 'q4', 'q5', 'q8', 'raw'\)"
+  with pytest.raises(ValueError, match=msg):
+    dataclasses.replace(j_get_arch(ARCH, reduced=True),
+                        spill_codec="gzip").make_cache_policy(64)
+  with pytest.raises(ValueError, match=msg):
+    dataclasses.replace(base, spill_codec="gzip").make_cache_policy(64)
+  with pytest.raises(ValueError, match=msg):
+    TEngine(dataclasses.replace(base, spill_codec="gzip"), context_len=96,
+            max_batch=2, device="cpu")
+  for codec in ("raw", "int8", "q4", "q5", "q8"):
+    policy = dataclasses.replace(base, cache_policy="exact",
+                                 spill_codec=codec).make_cache_policy(64)
+    assert tuple(policy.spill_codecs()) == (codec, codec)
+
+
+def test_config_stream_window_reaches_the_policy():
+  base = dataclasses.replace(t_get_arch(ARCH, reduced=True),
+                             cache_policy="streamingllm")
+  assert base.make_cache_policy(96).spec.window == 96       # clamped
+  cfg = dataclasses.replace(base, stream_window=16)
+  assert cfg.make_cache_policy(96).spec.window == 16
+  assert cfg.make_cache_policy(96).dead_below(40) == 24
+
+
+def test_config_host_blocks_is_ignored_outside_tiered_as_the_reference():
+  # the reference hands cfg.host_blocks to the layout, and only the tiered
+  # layout (ROADMAP A9) reads it: paged serving is the same with it set
+  trace = random_trace(7, n=3)
+  runs = []
+  for host_blocks in (None, 8):
+    je, te = engine_pair("exact", "paged", "paged", host_blocks=host_blocks)
+    handles = [(je.submit(p, mx), te.submit(p, mx)) for p, mx in trace]
+    je.run_to_completion()
+    te.run_to_completion()
+    for jh, th in handles:
+      assert th.tokens == jh.tokens
+    runs.append([th.tokens for _, th in handles])
+  assert runs[0] == runs[1]

@@ -112,16 +112,25 @@ def test_dispatch_resolves_by_device():
     decode_dispatch.resolve("cuda", "cpu")
   with pytest.raises(ValueError, match="unknown decode kernel"):
     decode_dispatch.validate("pallas")
-  spec = cache_api.CacheSpec(capacity=64, head_dim=16, decode_kernel="cuda")
+  spec = cache_api.CacheSpec(capacity=64, head_dim=16, window=64,
+                             decode_kernel="cuda")
   with pytest.raises(ValueError):            # resolved once, at build time
     cache_registry.make("exact", spec)
 
 
 def test_unported_policies_raise_naming_roadmap():
-  assert cache_registry.names() == ("exact", "pq")
-  spec = cache_api.CacheSpec(capacity=64, head_dim=16)
-  with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-    cache_registry.make("snapkv", spec)
+  # every policy of the reference is ported (ROADMAP A8 was the last); what
+  # is still unported is the tiered layout, and unknown keys stay unknown
+  assert cache_registry.names() == ("exact", "pq", "pqcache", "skvq",
+                                    "snapkv", "streamingllm")
+  spec = cache_api.CacheSpec(capacity=64, head_dim=16, window=64)
+  for name in cache_registry.names():
+    if name != "pq":                       # pq needs its geometry
+      assert cache_registry.make(name, spec).name == name
+  with pytest.raises(KeyError, match="unknown cache policy"):
+    cache_registry.make("h2o", spec)
+  with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    cache_registry.get_layout("tiered")
 
 
 _IMPORT_CHECK = r"""

@@ -36,10 +36,12 @@ ARCH = "tinyllama-1.1b"
 CONTEXT, PROMPT_CAP, MAX_BATCH = 112, 64, 3
 
 
-def engine_pair(policy, layout, sched, num_blocks=None, j_kernel="xla"):
-  """Reference and port engines over the same weights."""
+def engine_pair(policy, layout, sched, num_blocks=None, j_kernel="xla",
+                **cfg_kw):
+  """Reference and port engines over the same weights; `cfg_kw` are further
+  config fields, set on both."""
   kw = dict(cache_policy=policy, dtype_str="float32", cache_layout=layout,
-            scheduler=sched)
+            scheduler=sched, **cfg_kw)
   jcfg = dataclasses.replace(j_get_arch(ARCH, reduced=True),
                              decode_kernel=j_kernel, **kw)
   tcfg = dataclasses.replace(t_get_arch(ARCH, reduced=True),
