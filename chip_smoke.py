@@ -8,12 +8,15 @@ Needs one CUDA card (built for an H100, sm_90a) and the CUDA toolkit.  It
      source, all started together) into `build/repro_torch/`;
   2. holds each kernel against its plain PyTorch version on the card at the
      full-width shapes its path gives it (K1/K2 the contiguous serve path,
+     K2 on the bf16 store and on the f32 store of the exact q4 path, each
+     of its two steps against its plain version and two calls bit-equal;
      K3/K4/K5 the paged engine path: layer 21 of 22, shuffled block tables
      with trash entries, ragged lengths; K6 the pq prefill's k-means; K7 the
      prefill attention of `ServeRun` and of an engine admission, a ragged N,
      a non-causal and an f32 case; K8 the contiguous q4 store) and times
      kernel, plain version, the bound and (where one exists) a single
-     PyTorch library call;
+     PyTorch library call, printing K2's and K7's factor over that call and
+     their share of the bound;
   3. serves full-width tinyllama-1.1b (random bf16 weights from a seed)
      through `ServeRun` with the `pq` policy, the `exact` policy and the
      `exact` policy on its packed q4 store, batch 4, prompt 1024, 16
@@ -201,43 +204,81 @@ def kernel_phase(dev, tag) -> dict:
         f"{KERNEL_ATOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
         f"{b_ms * 1e3:.3f} us ({b_by}) library n/a")
 
-  # K2 at the exact policy's shapes: capacity prompt + gen, bf16 K/V
+  # K2 at the exact policy's shapes: capacity prompt + gen, K/V bf16 (the
+  # exact store) or f32 (the exact q4 store, dequantized through K8)
   cap = PROMPT + GEN
-  kk, vv = randn(bh, cap, d), randn(bh, cap, d)
   full2 = torch.full((bh,), PROMPT + 1, dtype=torch.int32, device=dev)
   ragged2 = torch.tensor([0, 1, 63, 64, 65, 517, 1000, cap] * 2,
                          dtype=torch.int32, device=dev)
-  err = 0.0
-  for length in (full2, ragged2):
-    out = pfd.flash_decode(q, kk, vv, length, scale)
-    ref = pfd.flash_decode_plain(q, kk, vv, length, scale)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-      raise AssertionError("K2 output is not finite")
-    err = max(err, float((out - ref).abs().max()))
-  if not err <= KERNEL_ATOL:
-    raise AssertionError(f"K2 max abs err {err} > {KERNEL_ATOL}")
-  ms = cuda_time_ms(lambda: pfd.flash_decode(q, kk, vv, full2, scale))
-  plain_ms = cuda_time_ms(lambda: pfd.flash_decode_plain(q, kk, vv, full2,
-                                                         scale))
-  mask = (torch.arange(cap, device=dev)[None, :]
-          < full2[:, None])[:, None, None, :]
+  n_split, chunk = pfd.flash_decode_split(
+      bh, cap, torch.cuda.get_device_properties(dev).multi_processor_count)
   sdpa = torch.nn.functional.scaled_dot_product_attention
-  library_ms = cuda_time_ms(lambda: sdpa(
-      q[:, None], kk[:, None], vv[:, None], attn_mask=mask, scale=scale))
-  tokens = int(full2.sum())
-  nbytes = q.numel() * 2 + 2 * tokens * d * 2 + bh * 4 + bh * g * d * 4
-  ops = tokens * g * d * 2 * 2
-  b_ms, b_by = bound(nbytes, ops, torch.bfloat16)
+  k2 = {}
+  for dtype in (torch.bfloat16, torch.float32):
+    qd = q.to(dtype)
+    kk, vv = randn(bh, cap, d, dtype=dtype), randn(bh, cap, d, dtype=dtype)
+    err = 0.0
+    for length in (full2, ragged2):
+      out = pfd.flash_decode(qd, kk, vv, length, scale)
+      again = pfd.flash_decode(qd, kk, vv, length, scale)
+      ref = pfd.flash_decode_plain(qd, kk, vv, length, scale)
+      torch.cuda.synchronize()
+      if not torch.isfinite(out).all():
+        raise AssertionError("K2 output is not finite")
+      if not torch.equal(out, again):
+        raise AssertionError(f"K2 ({dtype}): two calls on the same inputs "
+                             f"differ")
+      empty = length == 0
+      if empty.any() and out[empty].abs().max() != 0:
+        raise AssertionError("K2 empty rows must give out 0")
+      err = max(err, float((out - ref).abs().max()))
+      # each step against its plain version, the merge on the kernel's own
+      # partials
+      acc, stats = pfd.flash_decode_partials(qd, kk, vv, length, scale,
+                                             n_split, chunk)
+      p_acc, p_stats = pfd.flash_decode_partials_plain(
+          qd, kk, vv, length, scale, n_split, chunk)
+      torch.testing.assert_close(acc, p_acc, atol=KERNEL_ATOL, rtol=1e-4)
+      torch.testing.assert_close(stats, p_stats, atol=KERNEL_ATOL, rtol=1e-4)
+      merge_err = float((pfd.flash_decode_merge(acc, stats)
+                         - pfd.flash_decode_merge_plain(acc, stats)
+                         ).abs().max())
+      if not merge_err <= KERNEL_ATOL:
+        raise AssertionError(f"K2 merge differs from the plain merge by "
+                             f"{merge_err}")
+    if not err <= KERNEL_ATOL:
+      raise AssertionError(f"K2 ({dtype}) max abs err {err} > {KERNEL_ATOL}")
+    ms = cuda_time_ms(lambda: pfd.flash_decode(qd, kk, vv, full2, scale))
+    plain_ms = cuda_time_ms(lambda: pfd.flash_decode_plain(qd, kk, vv, full2,
+                                                           scale))
+    mask = (torch.arange(cap, device=dev)[None, :]
+            < full2[:, None])[:, None, None, :]
+    library_ms = cuda_time_ms(lambda: sdpa(
+        qd[:, None], kk[:, None], vv[:, None], attn_mask=mask, scale=scale))
+    tokens = int(full2.sum())
+    size = kk.element_size()
+    nbytes = qd.numel() * size + 2 * tokens * d * size + bh * 4 + bh * g * d * 4
+    ops = tokens * g * d * 2 * 2
+    b_ms, b_by = bound(nbytes, ops, dtype)
+    k2[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=library_ms)
+    print(f"{tag} K2 flash_decode ({str(dtype).replace('torch.', '')}, split "
+          f"S {n_split} x {chunk} tokens): max_abs_err {err:.3e} (tol "
+          f"{KERNEL_ATOL}), two calls bit-equal, merge within "
+          f"{KERNEL_ATOL} of the plain merge; kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us ({b_by}) library "
+          f"(sdpa + mask) {library_ms:.4f} ms; {ms / library_ms:.3f}x the "
+          f"library, {b_ms / ms:.4f} of the bound")
+  bf = k2[torch.bfloat16]
   res["flash_decode"] = dict(
       name="flash_decode", route="cuda",
       source="src/repro_torch/csrc/flash_decode.cu",
       replaces="src/repro/kernels/paged_flash_decode.py:115",
-      max_abs_err=err, tolerance=KERNEL_ATOL, ms=ms, plain_ms=plain_ms,
-      bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
-  print(f"{tag} K2 flash_decode: max_abs_err {err:.3e} (tol {KERNEL_ATOL}) "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-        f"{b_ms * 1e3:.3f} us ({b_by}) library (sdpa) {library_ms:.4f} ms")
+      max_abs_err=max(c["max_abs_err"] for c in k2.values()),
+      tolerance=KERNEL_ATOL, bit_equal_calls=True, split=[n_split, chunk],
+      ms=bf["ms"], plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
+      bound_by=bf["bound_by"], library_ms=bf["library_ms"],
+      f32=k2[torch.float32])
   return res
 
 
@@ -570,7 +611,8 @@ def flash_kernel_phase(dev, tag) -> dict:
           f"{err:.3e}, {share:.4f} of its bound at worst (bound median "
           f"{tol_med:.3e}, max {tol_max:.3e}) kernel {ms:.4f} ms plain "
           f"{plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} B) "
-          f"library (sdpa) {library_ms:.4f} ms")
+          f"library (sdpa) {library_ms:.4f} ms; {ms / library_ms:.3f}x the "
+          f"library, {b_ms / ms:.4f} of the bound")
     del q, k, v, got, want, tol, diff
   serve = cases[0]
   return {"flash_attention": dict(

@@ -1,18 +1,24 @@
-// Shared device body of the flash-decode kernels K2 (`flash_decode.cu`,
-// dense K/V), K4 (`paged_flash_decode.cu`, K/V pages read in place from a
-// block pool) and K5 (`packed_paged_flash_decode.cu`, packed pages
-// dequantized on load).  They differ only in how a cached token's K/V
-// element and a row's length are found: the kernel is templated on a `Rows`
-// type with
+// Shared device body of the flash-decode kernels K4
+// (`paged_flash_decode.cu`, K/V pages read in place from a block pool) and
+// K5 (`packed_paged_flash_decode.cu`, packed pages dequantized on load).
+// They differ only in how a cached token's K/V element and a row's length
+// are found: the kernel is templated on a `Rows` type with
 //
 //   __device__ int length(const int* length, int bh) const;     // valid tokens
 //   __device__ float value(int bh, int t, int dim) const;       // one element, f32
 //   int capacity;                                                // tokens a row holds
 //
-// so K2 keeps its arithmetic bit for bit, K4 adds only its page walk and K5
-// its decode of codes and f16 headers; on the f32 values K5 decodes, K4
-// gives the same bits.  What the kernel computes and how its block is laid
-// out: see the header of `flash_decode.cu`.
+// so K5 adds only its decode of codes and f16 headers to K4's page walk; on
+// the f32 values K5 decodes, K4 gives the same bits.  K2 (`flash_decode.cu`,
+// dense K/V) has its own split-K design and no longer shares this body.
+//
+// One block per (batch, kv head) row, 256 threads, token tile 64:
+//   1. load the K and V tile (64, d) as f32 (rows padded by one float);
+//   2. scores s[g, t] = scale * <q[g], k[t]>, one (g, t) pair per thread step;
+//   3. warp w runs the online softmax for rows w, w+8, ...;
+//   4. each thread accumulates its (g, d) outputs against the V tile.
+// What bounds K4 and K5 on the H100, and what is left: see their files'
+// headers.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -14,11 +14,12 @@
 // What bounds it on the H100: bytes, as for K2.  Each cached K/V element is
 // read once and used by the g query rows that share its kv head (2*g FLOPs
 // per element), far below the ~295 operations per byte at which bf16 compute
-// would bind.  The design is K2's (a K/V tile in shared memory used by all g
-// rows, online softmax over tiles, one block per bh row); the device body is
-// shared through `flash_decode_body.cuh`.
+// would bind.  The design is K2's first one (a K/V tile in shared memory
+// used by all g rows, online softmax over tiles, one block per bh row), kept
+// in `flash_decode_body.cuh`, which K5 shares; K2 itself now splits the
+// sequence over blocks (`flash_decode.cu`).
 //
-// Page walk: the token tile stays K2's 64 tokens, so with blk = 16 one tile
+// Page walk: the token tile is 64 tokens, so with blk = 16 one tile
 // spans 4 pages.  The tile load runs over (token, dim) pairs; each pair finds
 // its page base from the table (the d consecutive threads of one token share
 // one table entry) and reads row t % blk of that page's (layer, head) plane,

@@ -13,7 +13,9 @@ no fallback.
 
 Shapes: q (B, Hq, N, d), k and v (B, Hkv, N, d), all bf16 or all f32, d in
 {16, 32, 64, 128}.  Unlike the TPU kernel, any N >= 1 is taken: the kernel
-masks a ragged last tile itself.
+masks a ragged last tile itself.  A bf16 block holds 128 (query head,
+position) rows of one kv head's group (`block_geometry`), so each K/V tile
+is read once per group of up to 4 (d = 64) or 8 query heads.
 """
 from __future__ import annotations
 
@@ -26,8 +28,23 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 SMEM_LIMIT = 232448            # bytes of shared memory one H100 block may use
 MAX_GRID_YZ = 65535
+MAX_GRID_X = 2 ** 31 - 1
+# (query head, position) rows per bf16 block: one warpgroup at d = 64
+# (wgmma), eight warps of mma.sync at the other head dims
+WGMMA_ROWS, MMA_ROWS = 64, 128
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
+
+
+def block_geometry(g: int, d: int) -> tuple:
+  """(heads per block, positions per block) of a bf16 K7 block for g query
+  heads per kv head at head dim d: the block's rows (64 at d = 64, else
+  128) are hb heads of one kv head's group times pt positions, hb the
+  largest of 8, 4, 2, 1 that divides g and leaves pt a multiple of 16 (the
+  m-tile)."""
+  rows = WGMMA_ROWS if d == 64 else MMA_ROWS
+  hb = next(h for h in (8, 4, 2, 1) if g % h == 0 and 16 * h <= rows)
+  return hb, rows // hb
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,15 +124,23 @@ def kernel_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           + F32_ATOL).clamp(max=BF16_ATOL_CAP)
 
 
+_LIB = {}
+# (dtype, d) -> the shared memory of its block, checked once
+_SMEM_OK = {}
+
+
 def _lib() -> ctypes.CDLL:
-  lib = _build.load("flash_attention")
-  fn = lib.flash_attention_launch
-  fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-  fn.restype = ctypes.c_int
-  lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
-  lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
-  return lib
+  """K7's library, its argument types set once."""
+  if "lib" not in _LIB:
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
+    _LIB["lib"] = lib
+  return _LIB["lib"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,8 +158,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      f"match q {tuple(q.shape)} (Hq a multiple of Hkv)")
   if q.device.type == "cpu":
     return flash_attention_plain(q, k, v, scale, causal)
-  tensors = (q, k, v)
-  if any(t.device != q.device for t in tensors):
+  if k.device != q.device or v.device != q.device:
     raise ValueError("all K7 inputs must be on one device")
   _build.require_sm90(q.device)
   if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -142,22 +166,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     f"{k.dtype}, {v.dtype}")
   if d not in _HEAD_DIMS:
     raise ValueError(f"K7 takes head dim in {_HEAD_DIMS}, got {d}")
-  if max(b, hq) > MAX_GRID_YZ:
-    raise ValueError(f"K7 takes B and Hq <= {MAX_GRID_YZ} (the grid's y and "
-                     f"z axes), got {b}, {hq}")
-  if not all(t.is_contiguous() for t in tensors):
+  # grids: bf16 (B * Hq / hb, N / pt), f32 (N / 64, Hq, B)
+  hb, pt = block_geometry(hq // hkv, d)
+  if max(b, hq) > MAX_GRID_YZ or (q.dtype == torch.bfloat16 and (
+      -(-n // pt) > MAX_GRID_YZ or b * hq // hb > MAX_GRID_X)):
+    raise ValueError(f"K7's grid is out of range for B {b}, Hq {hq}, N {n} "
+                     f"(B, Hq and, in bf16, N / {pt} <= {MAX_GRID_YZ})")
+  if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
     raise ValueError("K7 inputs must be contiguous")
-  if any(t.data_ptr() % 16 for t in tensors):
+  if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
     raise ValueError("K7 inputs must be 16-byte aligned")
   lib = _lib()
-  smem = lib.flash_attention_smem_bytes(_DTYPE_CODES[q.dtype], d)
-  if smem > SMEM_LIMIT:
-    raise ValueError(f"K7 needs {smem} B of shared memory; a block has "
-                     f"{SMEM_LIMIT}")
+  if (q.dtype, d) not in _SMEM_OK:
+    smem = lib.flash_attention_smem_bytes(_DTYPE_CODES[q.dtype], d)
+    if smem > SMEM_LIMIT:
+      raise ValueError(f"K7 needs {smem} B of shared memory; a block has "
+                       f"{SMEM_LIMIT}")
+    _SMEM_OK[(q.dtype, d)] = True
   out = torch.empty_like(q)
   err = lib.flash_attention_launch(
       _DTYPE_CODES[q.dtype], int(bool(causal)), q.data_ptr(), k.data_ptr(),
-      v.data_ptr(), out.data_ptr(), b, hq, hkv, n, d, float(scale),
+      v.data_ptr(), out.data_ptr(), b, hq, hkv, n, d, hb, float(scale),
       torch.cuda.current_stream(q.device).cuda_stream)
   if err != 0:
     raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "

@@ -13,6 +13,12 @@ element dequantized on load).  Each wrapper takes its plain version
 the H100 and how their design answers that) or raises.  There is no
 fallback from a kernel to its plain version.
 
+K2 runs in two steps on the card: a split kernel over (row, chunk of the
+sequence) writes unnormalised partials and a merge kernel combines them in
+chunk order (`flash_decode_split` picks the chunks from the capacity; the
+steps' plain versions are `flash_decode_partials_plain` and
+`flash_decode_merge_plain`).
+
 Shapes, as the TPU kernels: q (BH, g, d) in the cache dtype (K5: bf16 or
 f32); K2 k, v (BH, N, d) with length (BH,) int32 valid tokens; K4 pools
 (P+1, L, H, blk, d) with tables (B, nb) int32, a Python-int layer and length
@@ -31,6 +37,8 @@ from repro_torch.kernels import _build, packing
 from repro_torch.kernels.pq_decode import check_paged
 
 SMEM_LIMIT = 232448            # bytes of shared memory one H100 block may use
+H100_SMS = 132
+DECODE_TILE = 64               # K2's token tile; its chunks are whole tiles
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -43,53 +51,176 @@ def flash_decode_plain(q, k, v, length, scale: float) -> torch.Tensor:
   return out
 
 
+def flash_decode_split(bh: int, n: int, sms: int = H100_SMS) -> tuple:
+  """(S, chunk): K2's split of a capacity of n tokens over S blocks per row.
+
+  From the capacity and the SM count alone (never the device `length`, which
+  would cost a host sync): S = ceil(2 sms / bh), so that bh * S fills the
+  SMs about twice, capped at the number of 64-token tiles; chunk = whole
+  tiles, 64 ceil(tiles / S); S is then recounted so every chunk starts below
+  n.  Chunk s covers tokens [s chunk, min((s + 1) chunk, n)).
+  """
+  tiles = max(1, -(-n // DECODE_TILE))
+  s = max(1, min(-(-2 * sms // max(bh, 1)), tiles))
+  chunk = DECODE_TILE * -(-tiles // s)
+  return -(-max(n, 1) // chunk), chunk
+
+
+def flash_decode_partials_plain(q, k, v, length, scale: float, n_split: int,
+                                chunk: int):
+  """Plain version of K2's first step: each chunk's unnormalised partial.
+
+  Returns acc (BH, S, g, d) = sum_t e^(s_t - m) v_t, and stats (BH, S, 2, g)
+  = (m, sum_t e^(s_t - m)) over the chunk's tokens below `length`, in f32;
+  a chunk with no such token gives (0, -inf, 0).
+  """
+  bh, g, d = q.shape
+  n = k.shape[1]
+  qf, kf, vf = q.float(), k.float(), v.float()
+  accs, stats = [], []
+  for s in range(n_split):
+    t0, t1 = s * chunk, min((s + 1) * chunk, n)
+    pos = torch.arange(t0, t1, device=q.device)
+    mask = (pos[None, :] < length[:, None].long())[:, None, :]  # (BH, 1, c)
+    sc = torch.einsum("bgd,btd->bgt", qf, kf[:, t0:t1]) * scale
+    sc = torch.where(mask, sc, torch.full_like(sc, float("-inf")))
+    m = (torch.amax(sc, dim=-1) if t1 > t0
+         else torch.full((bh, g), float("-inf"), device=q.device))
+    base = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+    p = torch.exp(sc - base[..., None])
+    accs.append(torch.einsum("bgt,btd->bgd", p, vf[:, t0:t1]))
+    stats.append(torch.stack([m, p.sum(-1)], dim=1))
+  return torch.stack(accs, dim=1), torch.stack(stats, dim=1)
+
+
+def flash_decode_merge_plain(acc, stats) -> torch.Tensor:
+  """Plain version of K2's second step: the flash-decoding combine of the
+  partials, (BH, S, g, d) and (BH, S, 2, g) -> normalised (BH, g, d) f32;
+  a row whose partials are all empty gives 0."""
+  m, l = stats[:, :, 0], stats[:, :, 1]
+  top = torch.amax(m, dim=1, keepdim=True)
+  base = torch.where(top == float("-inf"), torch.zeros_like(top), top)
+  w = torch.exp(m - base)
+  num = (w[..., None] * acc).sum(dim=1)
+  den = (w * l).sum(dim=1)
+  return num / den.clamp_min(1e-30)[..., None]
+
+
+_LIB = {}
+
+
 def _lib() -> ctypes.CDLL:
-  lib = _build.load("flash_decode")
-  fn = lib.flash_decode_launch
-  fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                 + [ctypes.c_float, ctypes.c_void_p])
-  fn.restype = ctypes.c_int
-  lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 2
-  lib.flash_decode_smem_bytes.restype = ctypes.c_size_t
-  lib.flash_decode_max_outputs.restype = ctypes.c_int
-  return lib
+  """K2's library, its argument types set once."""
+  if "lib" not in _LIB:
+    lib = _build.load("flash_decode")
+    fn = lib.flash_decode_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.flash_decode_split_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.flash_decode_merge_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.flash_decode_smem_bytes.restype = ctypes.c_size_t
+    lib.flash_decode_max_outputs.restype = ctypes.c_int
+    _LIB["lib"] = lib
+  return _LIB["lib"]
 
 
-def flash_decode(q, k, v, length, scale: float) -> torch.Tensor:
-  """K2 wrapper: plain version on CPU tensors, the CUDA kernel on CUDA
-  tensors (or an error).  Counts its kernel launches in `.launches`."""
+# (dtype, g, d) -> True once K2's block takes it; device -> SM count
+_FITS = {}
+_SM_COUNT = {}
+
+
+def _sm_count(device) -> int:
+  key = str(device)
+  if key not in _SM_COUNT:
+    _SM_COUNT[key] = torch.cuda.get_device_properties(device).multi_processor_count
+  return _SM_COUNT[key]
+
+
+def _check_decode(q, k, v, length):
   bh, g, d = q.shape
   n = k.shape[1]
   for name, t, shape in (("k", k, (bh, n, d)), ("v", v, (bh, n, d)),
                          ("length", length, (bh,))):
     if tuple(t.shape) != shape:
       raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
-  if q.device.type == "cpu":
-    return flash_decode_plain(q, k, v, length, scale)
-  tensors = (q, k, v, length)
-  if any(t.device != q.device for t in tensors):
+
+
+def _check_cuda(q, k, v, length) -> ctypes.CDLL:
+  """K2's refusals on CUDA tensors; returns the loaded library."""
+  _, g, d = q.shape
+  dev = q.device
+  if k.device != dev or v.device != dev or length.device != dev:
     raise ValueError("all K2 inputs must be on one device")
-  _build.require_sm90(q.device)
+  _build.require_sm90(dev)
   if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
     raise TypeError(f"q, k, v must share bf16 or f32, got {q.dtype}, "
                     f"{k.dtype}, {v.dtype}")
   if length.dtype != torch.int32:
     raise TypeError(f"length must be int32, got {length.dtype}")
-  if not all(t.is_contiguous() for t in tensors):
+  if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+          and length.is_contiguous()):
     raise ValueError("K2 inputs must be contiguous")
   lib = _lib()
-  if g * d > lib.flash_decode_max_outputs():
-    raise ValueError(f"K2 takes g*d <= {lib.flash_decode_max_outputs()}, "
-                     f"got g={g}, d={d}")
-  smem = lib.flash_decode_smem_bytes(g, d)
-  if smem > SMEM_LIMIT:
-    raise ValueError(f"K2 needs {smem} B of shared memory; a block has "
-                     f"{SMEM_LIMIT}")
+  key = (q.dtype, g, d)
+  if key not in _FITS:
+    if g * d > lib.flash_decode_max_outputs():
+      raise ValueError(f"K2 takes g*d <= {lib.flash_decode_max_outputs()}, "
+                       f"got g={g}, d={d}")
+    smem = lib.flash_decode_smem_bytes(_DTYPE_CODES[q.dtype], g, d)
+    if smem > SMEM_LIMIT:
+      raise ValueError(f"K2 needs {smem} B of shared memory; a block has "
+                       f"{SMEM_LIMIT}")
+    _FITS[key] = True
+  return lib
+
+
+def _stream(t) -> int:
+  return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _split_cuda(lib, q, k, v, length, scale, n_split, chunk):
+  bh, g, d = q.shape
+  acc = torch.empty((bh, n_split, g, d), dtype=torch.float32, device=q.device)
+  stats = torch.empty((bh, n_split, 2, g), dtype=torch.float32,
+                      device=q.device)
+  err = lib.flash_decode_split_launch(
+      _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+      length.data_ptr(), acc.data_ptr(), stats.data_ptr(), bh, g, d,
+      k.shape[1], n_split, chunk, float(scale), _stream(q))
+  if err != 0:
+    raise RuntimeError(f"flash_decode split kernel launch failed: CUDA error "
+                       f"{err}")
+  return acc, stats
+
+
+def flash_decode(q, k, v, length, scale: float) -> torch.Tensor:
+  """K2 wrapper: plain version on CPU tensors, the CUDA kernels on CUDA
+  tensors (or an error): the split kernel, then the merge, on the split
+  `flash_decode_split` picks, from one C call.  `.launches` counts the calls
+  that launched them: one per call, although each call runs the two
+  kernels."""
+  _check_decode(q, k, v, length)
+  if q.device.type == "cpu":
+    return flash_decode_plain(q, k, v, length, scale)
+  lib = _check_cuda(q, k, v, length)
+  bh, g, d = q.shape
+  n = k.shape[1]
+  n_split, chunk = flash_decode_split(bh, n, _sm_count(q.device))
+  # scratch: the partials, acc (BH, S, g, d) then stats (BH, S, 2, g)
+  scratch = torch.empty(bh * n_split * g * (d + 2), dtype=torch.float32,
+                        device=q.device)
   out = torch.empty((bh, g, d), dtype=torch.float32, device=q.device)
   err = lib.flash_decode_launch(
       _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-      length.data_ptr(), out.data_ptr(), bh, g, d, n, float(scale),
-      torch.cuda.current_stream(q.device).cuda_stream)
+      length.data_ptr(), scratch.data_ptr(), out.data_ptr(), bh, g, d, n,
+      n_split, chunk, float(scale), _stream(q))
   if err != 0:
     raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
   flash_decode.launches += 1
@@ -97,6 +228,47 @@ def flash_decode(q, k, v, length, scale: float) -> torch.Tensor:
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_partials(q, k, v, length, scale: float, n_split: int,
+                          chunk: int):
+  """K2's first step alone, for checks: the plain partials on CPU tensors,
+  the split kernel's on CUDA tensors.  Not counted in
+  `flash_decode.launches` (no serving path calls it)."""
+  _check_decode(q, k, v, length)
+  if q.device.type == "cpu":
+    return flash_decode_partials_plain(q, k, v, length, scale, n_split, chunk)
+  if n_split < 1 or chunk < 1 or (n_split - 1) * chunk >= max(k.shape[1], 1):
+    raise ValueError(f"split ({n_split}, {chunk}) does not cut "
+                     f"{k.shape[1]} tokens")
+  lib = _check_cuda(q, k, v, length)
+  return _split_cuda(lib, q, k, v, length, scale, n_split, chunk)
+
+
+def flash_decode_merge(acc, stats) -> torch.Tensor:
+  """K2's second step alone, for checks: the plain merge on CPU tensors,
+  the merge kernel on CUDA tensors.  Not counted in `flash_decode.launches`.
+  """
+  bh, n_split, g, d = acc.shape
+  if tuple(stats.shape) != (bh, n_split, 2, g):
+    raise ValueError(f"stats shape {tuple(stats.shape)} != "
+                     f"{(bh, n_split, 2, g)}")
+  if acc.device.type == "cpu":
+    return flash_decode_merge_plain(acc, stats)
+  if (acc.dtype, stats.dtype) != (torch.float32, torch.float32) or not (
+      acc.is_contiguous() and stats.is_contiguous()):
+    raise TypeError("K2's merge takes contiguous f32 partials")
+  if stats.device != acc.device:
+    raise ValueError("K2's merge inputs must be on one device")
+  _build.require_sm90(acc.device)
+  out = torch.empty((bh, g, d), dtype=torch.float32, device=acc.device)
+  err = _lib().flash_decode_merge_launch(
+      acc.data_ptr(), stats.data_ptr(), out.data_ptr(), bh, g, d, n_split,
+      _stream(acc))
+  if err != 0:
+    raise RuntimeError(f"flash_decode merge kernel launch failed: CUDA error "
+                       f"{err}")
+  return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """Each CUDA kernel against its plain PyTorch version, on the card.
 
-The block-table-native kernels (K3, K4) are also held bit for bit to their
-dense counterparts (K1, K2) on the gathered dense view: they share one
-device body and differ only in how a token's row is addressed.  K5 is held
-bit for bit to K4 run on the f32 pools its plain dequant produces; K6 and
-K8 to their plain versions exactly.  K7 (flash attention, the prefill's)
+K3 is also held bit for bit to K1 on the gathered dense view: they share
+one device body and differ only in how a token's row is addressed.  K4 is
+held to K2 on that view within 1e-4, the tolerance each meets against the
+plain version: K2 splits the sequence over blocks and merges the partials,
+so its sums run in another order than K4's single pass.  K2 is held bit for
+bit to itself over two calls (its merge is deterministic).  K5 is held bit
+for bit to K4 run on the f32 pools its plain dequant produces; K6 and K8 to
+their plain versions exactly.  K7 (flash attention, the prefill's)
 is held to its plain version element by element within
 `flash_attention.kernel_error_bound`: for bf16 inputs 2^-8 x the plain
 attention of |v| (the kernel rounds P to bf16 before the PV product) +
@@ -71,26 +74,54 @@ def test_cuda_pq_decode_matches_plain(cuda_device, geometry, q_dtype):
   assert torch.all(out[0] == 0) and torch.all(stats[0, 1] == 0)
 
 
+def _decode_lengths(bh, n, chunk):
+  """Length vectors of bh rows that together hold 0, 1, 63, 64, 65, one
+  chunk - 1, one chunk, one chunk + 1 and n (each clamped to n)."""
+  special = [min(x, n) for x in (0, 1, 63, 64, 65, chunk - 1, chunk,
+                                 chunk + 1, n)]
+  rows = [special[i:i + bh] for i in range(0, len(special), bh)]
+  return [(r * bh)[:bh] for r in rows]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,d", [(8, 64), (2, 16)])
-def test_cuda_flash_decode_matches_plain(cuda_device, dtype, g, d):
+@pytest.mark.parametrize("bh,n", [(16, 1040), (1, 1000), (64, 333),
+                                  (1, 4100), (16, 100), (1, 20000)])
+def test_cuda_flash_decode_matches_plain(cuda_device, dtype, g, d, bh, n):
   dev = cuda_device
   gen = torch.Generator(device=dev).manual_seed(6)
-  bh, n = 16, 1040
+  n_split, chunk = t_pfd.flash_decode_split(
+      bh, n, torch.cuda.get_device_properties(dev).multi_processor_count)
   q = torch.randn(bh, g, d, generator=gen, device=dev).to(dtype)
   k, v = (torch.randn(bh, n, d, generator=gen, device=dev).to(dtype)
           for _ in range(2))
   ln = torch.randint(0, n + 1, (bh,), generator=gen, device=dev,
                      dtype=torch.int32)
   ln[0], ln[-1] = 0, n
-  before = t_pfd.flash_decode.launches
-  out = t_pfd.flash_decode(q, k, v, ln, d ** -0.5)
-  plain = t_pfd.flash_decode_plain(q, k, v, ln, d ** -0.5)
-  torch.cuda.synchronize()
-  assert t_pfd.flash_decode.launches == before + 1
-  torch.testing.assert_close(out, plain, atol=CUDA_ATOL, rtol=CUDA_ATOL)
-  assert torch.all(out[0] == 0)
+  cases = [ln] + [torch.tensor(x, dtype=torch.int32, device=dev)
+                  for x in _decode_lengths(bh, n, chunk)]
+  for ln in cases:
+    before = t_pfd.flash_decode.launches
+    out = t_pfd.flash_decode(q, k, v, ln, d ** -0.5)
+    plain = t_pfd.flash_decode_plain(q, k, v, ln, d ** -0.5)
+    torch.cuda.synchronize()
+    assert t_pfd.flash_decode.launches == before + 1
+    torch.testing.assert_close(out, plain, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+    assert torch.all(out[ln == 0] == 0)
+    assert torch.equal(out, t_pfd.flash_decode(q, k, v, ln, d ** -0.5)), (
+        "two K2 calls differ")
+  # each step against its plain version: the split kernel's partials, and
+  # the merge kernel on those partials against the plain merge
+  acc, stats = t_pfd.flash_decode_partials(q, k, v, cases[0], d ** -0.5,
+                                           n_split, chunk)
+  p_acc, p_stats = t_pfd.flash_decode_partials_plain(
+      q, k, v, cases[0], d ** -0.5, n_split, chunk)
+  torch.testing.assert_close(acc, p_acc, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+  torch.testing.assert_close(stats, p_stats, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+  torch.testing.assert_close(t_pfd.flash_decode_merge(acc, stats),
+                             t_pfd.flash_decode_merge_plain(acc, stats),
+                             atol=CUDA_ATOL, rtol=CUDA_ATOL)
 
 
 def _paged_inputs(gen, dev, b, nb, blk, pool_blocks, lengths):
@@ -179,7 +210,7 @@ def test_cuda_paged_flash_decode_matches_plain_and_k2(cuda_device, geometry,
       b * h, cap, d).contiguous() for p in (kpool, vpool)]
   out2 = t_pfd.flash_decode(q, dense[0], dense[1], ln.repeat_interleave(h),
                             d ** -0.5)
-  assert torch.equal(out, out2)
+  torch.testing.assert_close(out, out2, atol=CUDA_ATOL, rtol=CUDA_ATOL)
 
 
 @pytest.mark.cuda
@@ -257,6 +288,12 @@ def test_cuda_unpack_u4_matches_plain(cuda_device, n, dp):
   assert torch.equal(got, t_pk.unpack_u4(p))
 
 
+# every edge of a bf16 block's position tile (16, 64 or 128 positions for
+# g = 8, 2, 1) and of the 64-key tile, at the smallest and largest head dim
+K7_EDGES = [(1, 2 * g, 2, n, d) for n in (1, 15, 17, 129) for g in (1, 2, 8)
+            for d in (16, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,hq,hkv,n,d", [
     (4, 32, 4, 1024, 64),     # ServeRun's prefill, tinyllama-1.1b
@@ -265,7 +302,8 @@ def test_cuda_unpack_u4_matches_plain(cuda_device, n, dp):
     (2, 4, 2, 48, 16),        # reduced tinyllama
     (1, 8, 1, 200, 128),      # MQA, head dim 128
     (2, 6, 6, 192, 32),       # MHA
-])
+    (1, 12, 2, 300, 64),      # g = 6: two heads per block, three blocks
+] + K7_EDGES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_flash_attention_matches_plain(cuda_device, b, hq, hkv, n, d,

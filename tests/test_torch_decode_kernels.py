@@ -6,6 +6,10 @@ pq_decode_attention_ref` and `pq_decode_attention_kernel(interpret=True)`;
 the plain K2 against `flash_decode_kernel(interpret=True)`; the batched
 wrappers and `combine_attention_segments` against `repro.kernels.ops`.
 Tolerance 1e-5: f32 on the CPU, same inputs, sums in another order.
+K2's split-K on the CPU: `flash_decode_split` cuts every capacity into
+whole 64-token chunks within the grid's limits, and the plain partials
+merged by the plain merge match `flash_decode_plain` and the interpret-mode
+kernel within 1e-6 (f32, short rows), length-0 rows giving 0.
 
 The CUDA legs (kernel against plain version on the card) are in
 `test_torch_cuda_kernels.py`, which imports no JAX so it runs on the card.
@@ -98,6 +102,68 @@ def test_plain_flash_decode_matches_interpret_kernel(lengths):
                                   blk=16, interpret=True)
   np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
                              rtol=RTOL)
+
+
+SPLIT_NS = sorted(set(range(1, 300)) | set(range(300, 32769, 97))
+                  | {511, 512, 513, 1023, 1024, 1025, 1040, 16384, 32767,
+                     32768})
+
+
+@pytest.mark.parametrize("bh", [1, 2, 3, 7, 16, 17, 64, 100, 132, 133, 256])
+def test_flash_decode_split_cuts_every_capacity(bh):
+  for n in SPLIT_NS:
+    s, chunk = t_pfd.flash_decode_split(bh, n)
+    tiles = -(-n // t_pfd.DECODE_TILE)
+    assert 1 <= s <= min(tiles, -(-2 * t_pfd.H100_SMS // bh)), (bh, n, s)
+    assert chunk % t_pfd.DECODE_TILE == 0 and chunk > 0, (bh, n, chunk)
+    # chunks [i chunk, min((i + 1) chunk, n)) cover [0, n) once: all whole
+    # tiles but the last, which starts below n
+    assert (s - 1) * chunk < n <= s * chunk, (bh, n, s, chunk)
+    assert s <= 65535 and bh * s <= 2 ** 31 - 1
+  # the wrapper's default is the H100's SM count; another count moves S
+  assert t_pfd.flash_decode_split(16, 1040) == (17, 64)
+  assert t_pfd.flash_decode_split(16, 1040, sms=66) == (9, 128)
+
+
+@pytest.mark.parametrize("n,split", [(64, (1, 64)), (128, (2, 64)),
+                                     (192, (3, 64)), (192, (2, 128)),
+                                     (192, None)])
+@pytest.mark.parametrize("lengths", [[0, 64, 17, 1], [48, 5, 0, 192],
+                                     [65, 63, 128, 129]])
+def test_plain_split_merge_matches_plain_and_interpret_kernel(n, split,
+                                                              lengths):
+  rng = np.random.default_rng(5)
+  bh, g, d = 4, 3, 16
+  q = rng.normal(size=(bh, g, d)).astype(np.float32)
+  k = rng.normal(size=(bh, n, d)).astype(np.float32)
+  v = rng.normal(size=(bh, n, d)).astype(np.float32)
+  ln = np.minimum(np.asarray(lengths, np.int32), n)
+  n_split, chunk = split or t_pfd.flash_decode_split(bh, n)
+  args = (torch.tensor(q), torch.tensor(k), torch.tensor(v), torch.tensor(ln),
+          0.25)
+  acc, stats = t_pfd.flash_decode_partials_plain(*args, n_split, chunk)
+  assert acc.shape == (bh, n_split, g, d) and stats.shape == (bh, n_split,
+                                                               2, g)
+  out = t_pfd.flash_decode_merge_plain(acc, stats)
+  np.testing.assert_allclose(out.numpy(),
+                             t_pfd.flash_decode_plain(*args).numpy(),
+                             atol=1e-6, rtol=1e-6)
+  ref = j_pfd.flash_decode_kernel(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), jnp.asarray(ln), scale=0.25,
+                                  blk=16, interpret=True)
+  np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6,
+                             rtol=1e-6)
+  assert np.all(out.numpy()[ln == 0] == 0)
+  # a chunk with no token below the length is the empty partial
+  empty = torch.arange(n_split)[None, :] * chunk >= torch.tensor(ln)[:, None]
+  assert torch.all(stats[:, :, 0][empty] == float("-inf"))
+  assert torch.all(stats[:, :, 1][empty] == 0) and torch.all(acc[empty] == 0)
+  # the step wrappers take the plain versions on CPU tensors, uncounted
+  before = t_pfd.flash_decode.launches
+  acc2, stats2 = t_pfd.flash_decode_partials(*args, n_split, chunk)
+  assert torch.equal(acc2, acc) and torch.equal(stats2, stats)
+  assert torch.equal(t_pfd.flash_decode_merge(acc, stats), out)
+  assert t_pfd.flash_decode.launches == before
 
 
 def test_batched_wrappers_match_reference_ops():

@@ -105,6 +105,17 @@ def test_plain_ragged_n_matches_oracle_and_chunked(n, blk, causal):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", list(range(1, 33)) + [48, 64])
+def test_block_geometry_fills_a_block_with_one_group(g, d):
+  hb, pt = t_k7.block_geometry(g, d)
+  rows = t_k7.WGMMA_ROWS if d == 64 else t_k7.MMA_ROWS
+  assert hb in (1, 2, 4, 8) and g % hb == 0
+  assert hb * pt == rows and pt % 16 == 0
+  # the largest power of two that divides g and fits: the most K/V reuse
+  assert all(g % h for h in (8, 4, 2) if hb < h <= rows // 16)
+
+
 def test_wrapper_on_cpu_is_the_plain_version():
   _, (tq, tk, tv) = _both(_qkv(3, 2, 4, 2, 96, 16), jnp.float32,
                           torch.float32)
