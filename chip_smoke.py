@@ -11,12 +11,16 @@ Needs one CUDA card (built for an H100, sm_90a) and the CUDA toolkit.  It
      K2 on the bf16 store and on the f32 store of the exact q4 path, each
      of its two steps against its plain version and two calls bit-equal;
      K3/K4/K5 the paged engine path: layer 21 of 22, shuffled block tables
-     with trash entries, ragged lengths; K6 the pq prefill's k-means; K7 the
+     with trash entries, ragged lengths, K3's split and merge steps each
+     against their plain versions, two K3 calls bit-equal and K3 within
+     1e-4 of K1 on the gathered view; K6 the pq prefill's k-means at R = 512
+     and R = 128, also with planted ties, NaN and inf; K7 the
      prefill attention of `ServeRun` and of an engine admission, a ragged N,
      a non-causal and an f32 case; K8 the contiguous q4 store) and times
      kernel, plain version, the bound and (where one exists) a single
-     PyTorch library call, printing K2's and K7's factor over that call and
-     their share of the bound;
+     PyTorch library call, printing K2's and K7's factor over that call,
+     each kernel's share of the bound, and K3's and K6's times before their
+     redesign;
   3. serves full-width tinyllama-1.1b (random bf16 weights from a seed)
      through `ServeRun` with the `pq` policy, the `exact` policy and the
      `exact` policy on its packed q4 store, batch 4, prompt 1024, 16
@@ -46,7 +50,11 @@ Needs one CUDA card (built for an H100, sm_90a) and the CUDA toolkit.  It
      `snapkv` also from each dispatch's own prefill (K6 and K7 against the
      plain versions);
   6. profiles 3 decode steps per policy and layout (`torch.profiler`):
-     device busy share and the kernels that take the device time.
+     device busy share and the kernels that take the device time; then one
+     pq prefill of `ServeRun` (batch 4) and one of an engine admission
+     (batch 1): device busy share, K6's and the k-means update's device
+     time, the largest device entries, and in a second call the wall seconds
+     spent in K6 and in `weighted_update` (a synchronize around each call).
 
 Every check that fails raises, so the script exits non-zero.  The last line
 is a JSON object naming the device; the line before it the card's name and
@@ -105,6 +113,9 @@ KERNEL_ATOL = 1e-4
 # attention of |v| (P rounded to bf16 for the PV product) + 2^-7 x |plain|
 # (the output's bf16 rounding) + 1e-5, at most 3e-2 (the reference's bf16
 # limit); for f32 inputs (FMA, no TF32) 1e-5.
+# K3's and K6's times before their redesign (the one-pass K3 and the
+# one-point-per-thread K6; PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W)
+K3_BEFORE_MS, K6_BEFORE_MS = 0.19777408599853516, 0.17291584014892578
 # pqcache's index build: (iters 4 + 1) assignments per layer per decode step
 K6_PER_PQCACHE_STEP = 5 * N_LAYERS
 # Logits of the cuda vs torch dispatch: the models run in bf16, so an f32
@@ -132,6 +143,20 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
   t1.record()
   torch.cuda.synchronize()
   return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, kernels, calls: int = 20) -> float:
+  """Device milliseconds per call of fn in the kernels whose names contain
+  one of `kernels` (`torch.profiler`, `calls` calls after one warm-up)."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  return sum(e.self_device_time_total for e in prof.key_averages()
+             if any(k in e.key for k in kernels)) / calls / 1e3
 
 
 def bound(nbytes: float, ops: float, dtype) -> tuple:
@@ -335,8 +360,10 @@ def paged_kernel_phase(dev, tag) -> dict:
                                  rtol=1e-4)
       empty = (length == 0).repeat_interleave(h)
       if empty.any() and (out[empty].abs().max() != 0
-                          or (stats[empty, 1] != 0).any()):
-        raise AssertionError("K3 empty rows must give out 0 and denom 0")
+                          or (stats[empty, 1] != 0).any()
+                          or (stats[empty, 0] != pqd.NEG_INF).any()):
+        raise AssertionError("K3 empty rows must give out 0, max -1e30 and "
+                             "denom 0")
       errs[k_cent] = max(errs[k_cent], float((out - ref_out).abs().max()))
   err, err_u8 = errs[512], errs[256]
   if not max(err, err_u8) <= KERNEL_ATOL:
@@ -344,10 +371,36 @@ def paged_kernel_phase(dev, tag) -> dict:
                          f"{KERNEL_ATOL}")
   kcb, vcb, kp, vp = inputs[512]
   tables = _paged_tables(gen, dev, body, nb, pool_blocks)
-  ms = cuda_time_ms(lambda: pqd.pq_decode_attention_paged(
-      q, kcb, vcb, kp, vp, tables, layer, body, scale))
-  plain_ms = cuda_time_ms(lambda: pqd.pq_decode_attention_paged_plain(
-      q, kcb, vcb, kp, vp, tables, layer, body, scale))
+  args = (q, kcb, vcb, kp, vp, tables, layer, body, scale)
+  # two calls bit-equal; each step against its plain version (the merge on
+  # the split kernel's own partials); K1 on the gathered dense view
+  n_split, chunk = pqd.pq_decode_paged_split(
+      bh, nb * BLK, torch.cuda.get_device_properties(dev).multi_processor_count)
+  out, stats = pqd.pq_decode_attention_paged(*args)
+  again = pqd.pq_decode_attention_paged(*args)
+  acc, pst = pqd.pq_decode_paged_partials(*args, n_split, chunk)
+  p_acc, p_pst = pqd.pq_decode_paged_partials_plain(*args, n_split, chunk)
+  m_out, m_st = pqd.pq_decode_paged_merge(acc, pst)
+  w_out, w_st = pqd.pq_decode_paged_merge_plain(acc, pst)
+  dense = [x[:, layer][tables.long()].permute(0, 2, 1, 3, 4).reshape(
+      bh, nb * BLK, m).contiguous() for x in (kp, vp)]
+  out1, stats1 = pqd.pq_decode_attention(q, kcb, vcb, dense[0], dense[1],
+                                         body.repeat_interleave(h), scale)
+  torch.cuda.synchronize()
+  if not (torch.equal(out, again[0]) and torch.equal(stats, again[1])):
+    raise AssertionError("K3: two calls on the same inputs differ")
+  # the stats hold denominators of up to ~1e3: held as the card tests hold
+  # them, within 1e-4 absolute plus 1e-4 relative
+  for a, w in ((acc, p_acc), (pst, p_pst), (m_out, w_out), (m_st, w_st),
+               (out, out1), (stats, stats1)):
+    torch.testing.assert_close(a, w, atol=KERNEL_ATOL, rtol=1e-4)
+  step_err = max(float((acc - p_acc).abs().max()),
+                 float((m_out - w_out).abs().max()))
+  k1_err = float((out - out1).abs().max())
+  ms = cuda_time_ms(lambda: pqd.pq_decode_attention_paged(*args))
+  dev_ms = device_ms(lambda: pqd.pq_decode_attention_paged(*args),
+                     ("pq_decode_split_kernel", "pq_decode_merge_kernel"))
+  plain_ms = cuda_time_ms(lambda: pqd.pq_decode_attention_paged_plain(*args))
   tokens = int(body.sum()) * h
   nbytes = (q.numel() * 2 + (kcb.numel() + vcb.numel()) * 2
             + 2 * tokens * m * 2 + tables.numel() * 4 + b * 4
@@ -358,12 +411,19 @@ def paged_kernel_phase(dev, tag) -> dict:
       name="pq_decode_attention_paged", route="cuda",
       source="src/repro_torch/csrc/pq_decode_paged.cu",
       replaces="src/repro/kernels/pq_decode.py:289", max_abs_err=err,
-      max_abs_err_uint8=err_u8, tolerance=KERNEL_ATOL, ms=ms,
-      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-  print(f"{tag} K3 pq_decode_attention_paged: max_abs_err {err:.3e} "
-        f"(int16, K=512; uint8, K=256: {err_u8:.3e}; tol {KERNEL_ATOL}) "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-        f"{b_ms * 1e3:.3f} us ({b_by}) library n/a")
+      max_abs_err_uint8=err_u8, tolerance=KERNEL_ATOL, bit_equal_calls=True,
+      split=[n_split, chunk], step_err=step_err, k1_err=k1_err, ms=ms,
+      device_ms=dev_ms, before_ms=K3_BEFORE_MS, plain_ms=plain_ms,
+      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+  print(f"{tag} K3 pq_decode_attention_paged (split S {n_split} x {chunk} "
+        f"tokens): max_abs_err {err:.3e} (int16, K=512; uint8, K=256: "
+        f"{err_u8:.3e}; tol {KERNEL_ATOL}), two calls bit-equal, steps' "
+        f"outputs within {step_err:.3e} of their plain versions, out within "
+        f"{k1_err:.3e} of K1; kernel {ms:.4f} ms a call (before the "
+        f"redesign: {K3_BEFORE_MS}), of it {dev_ms:.4f} ms on the device "
+        f"(split + merge) plain {plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us "
+        f"({b_by}), {b_ms / ms:.4f} of the bound ({b_ms / dev_ms:.4f} of the "
+        f"device time); library n/a")
 
   # K4: exact K/V pools, 66 blocks per request (context 1056), bf16
   nb = (PROMPT + 32) // BLK
@@ -512,48 +572,79 @@ def packed_kernel_phase(dev, tag) -> dict:
   return res
 
 
+def _planted_k6(gen, dev, r, n, k_cent, dsub):
+  """K6 inputs with exact ties (each centroid twice, a quarter of the
+  points on centroids) and, in rows 0-4, a NaN point, +inf and -inf
+  points, a NaN centroid, an inf centroid; row 5 overflows x . c."""
+  half = torch.randn(r, k_cent // 2, dsub, generator=gen, device=dev)
+  c = torch.cat([half, half.flip(1)], dim=1).contiguous()
+  x = torch.randn(r, n, dsub, generator=gen, device=dev)
+  on = torch.randint(0, k_cent, (r, n // 4), generator=gen, device=dev)
+  x[:, ::4] = torch.gather(c, 1, on[..., None].expand(-1, -1, dsub))
+  x[0, 3, 0], x[1, 5, 0], x[2, 7, 0] = float("nan"), float("inf"), -float("inf")
+  c[3, k_cent // 2, 0], c[4, 0, 0] = float("nan"), float("inf")
+  x[5, 9, 0], c[5, 1] = 3e38, 1e30
+  return x.to(torch.bfloat16), c
+
+
 def kmeans_kernel_phase(dev, tag) -> dict:
   """K6 against its plain version at the pq prefill's shapes: R = B*H*m =
   512 rows of N = 1024 body tokens against K = 512 centroids of dsub = 2
   (`ServeRun`, batch 4) and R = 128 (an engine admission, batch 1); bf16
-  points (the model's keys) and f32 centroids, as the k-means hands them."""
+  points (the model's keys) and f32 centroids, as the k-means hands them;
+  then the same shapes with planted ties, NaN and inf.  Both shapes are
+  timed."""
   from repro_torch.core import kmeans
   from repro_torch.kernels import kmeans_assign as k6
+  from repro_torch.kernels import _build
 
   gen = torch.Generator(device=dev).manual_seed(3)
   n, k_cent, dsub = 1024, 512, 2
-  res, agree = {}, {}
+  agree, cases = {}, []
   for r in (BATCH * 4 * 32, 4 * 32):
     x = torch.randn(r, n, dsub, generator=gen, device=dev).to(torch.bfloat16)
     c = torch.randn(r, k_cent, dsub, generator=gen, device=dev)
     got = k6.kmeans_assign(x, c)
     want = k6.kmeans_assign_plain(x, c)
     full = kmeans.assign_clusters(x, c)
+    xp, cp = _planted_k6(gen, dev, r, n, k_cent, dsub)
+    got_p = k6.kmeans_assign(xp, cp)
+    want_p = k6.kmeans_assign_plain(xp, cp)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-      raise AssertionError(f"K6 ids differ from the plain version at R={r}: "
-                           f"{int((got != want).sum())} of {got.numel()}")
+    for label, a, w in (("", got, want), (" (planted ties, NaN, inf)", got_p,
+                                          want_p)):
+      if not torch.equal(a, w):
+        raise AssertionError(f"K6 ids differ from the plain version at "
+                             f"R={r}{label}: {int((a != w).sum())} of "
+                             f"{a.numel()}")
     agree[r] = float((got == full).float().mean())
-    if r == BATCH * 4 * 32:
-      ms = cuda_time_ms(lambda: k6.kmeans_assign(x, c))
-      plain_ms = cuda_time_ms(lambda: k6.kmeans_assign_plain(x, c), iters=10)
-      nbytes = x.numel() * 2 + c.numel() * 4 + r * n * 4
-      ops = r * n * k_cent * (2 * dsub + 2) + r * k_cent * 2 * dsub
-      b_ms, b_by = bound(nbytes, ops, torch.float32)
-      r_timed = r
-    del x, c, got, want, full
-  res["kmeans_assign"] = dict(
+    ms = cuda_time_ms(lambda: k6.kmeans_assign(x, c))
+    plain_ms = cuda_time_ms(lambda: k6.kmeans_assign_plain(x, c), iters=10)
+    nbytes = x.numel() * 2 + c.numel() * 4 + r * n * 4
+    # a pair: dsub products, dsub - 1 sums, a scale and a subtract; a
+    # centroid's ||c||^2: dsub products and dsub - 1 sums
+    ops = r * n * k_cent * (2 * dsub + 1) + r * k_cent * (2 * dsub - 1)
+    b_ms, b_by = bound(nbytes, ops, torch.float32)
+    lanes = k6.kmeans_assign_geometry(r, n, k_cent, _build.sm_count(dev))
+    cases.append(dict(r=r, lanes=lanes, ms=ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by))
+    before = f" (before: {K6_BEFORE_MS})" if r == BATCH * 4 * 32 else ""
+    print(f"{tag} K6 kmeans_assign R={r} (lanes {lanes}): ids equal to the "
+          f"plain version, also with planted ties, NaN and inf; share equal "
+          f"to assign_clusters {agree[r]:.6f}; kernel {ms:.4f} ms"
+          f"{before} plain "
+          f"{plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us ({b_by}), "
+          f"{b_ms / ms:.4f} of the bound; library n/a")
+    del x, c, got, want, full, xp, cp, got_p, want_p
+  serve = cases[0]
+  return {"kmeans_assign": dict(
       name="kmeans_assign", route="cuda",
       source="src/repro_torch/csrc/kmeans_assign.cu",
       replaces="src/repro/kernels/kmeans_assign.py:39", max_abs_err=0.0,
-      tolerance=0.0, agree_with_assign_clusters=agree, ms=ms,
-      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-  print(f"{tag} K6 kmeans_assign: ids equal to the plain version at R = "
-        f"{', '.join(map(str, agree))}; share equal to assign_clusters "
-        f"{', '.join(f'{v:.6f}' for v in agree.values())}; R={r_timed} kernel "
-        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us "
-        f"({b_by}) library n/a")
-  return res
+      tolerance=0.0, agree_with_assign_clusters=agree, ms=serve["ms"],
+      before_ms=K6_BEFORE_MS, plain_ms=serve["plain_ms"],
+      bound_ms=serve["bound_ms"], bound_by=serve["bound_by"],
+      library_ms=None, cases=cases)}
 
 
 def flash_kernel_phase(dev, tag) -> dict:
@@ -995,9 +1086,99 @@ def profile_steps(step, tag, label, steps: int = 3) -> None:
     print(f"{tag}   {ms:.4f} ms/step  {count:.0f}x  {name[:90]}")
 
 
+def _patched(module, name, wrap):
+  """Swap module.name for wrap(module.name); returns the undo."""
+  orig = getattr(module, name)
+  setattr(module, name, wrap(orig))
+  return lambda: setattr(module, name, orig)
+
+
+def _sync_timed(acc, key):
+  """fn -> fn whose calls add their synchronized wall seconds to acc[key]."""
+  def wrap(fn):
+    def timed(*a, **kw):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      out = fn(*a, **kw)
+      torch.cuda.synchronize()
+      acc[key] += time.perf_counter() - t0
+      return out
+    return timed
+  return wrap
+
+
+def profile_prefill(fn, tag, label) -> None:
+  """Where a pq prefill's time goes.  One profiled call (`torch.profiler`,
+  the k-means update marked with `record_function`): wall, device busy and
+  its share, K6's device time, the update's device time, and the largest
+  device entries.  Then one call with a synchronize around every K6 call and
+  every `weighted_update`: the wall seconds each takes, and the rest."""
+  from torch.profiler import ProfilerActivity, profile, record_function
+  from repro_torch.core import kmeans
+  from repro_torch.kernels import ops as kops
+
+  def marked(f):
+    def run(*a, **kw):
+      with record_function("kmeans.weighted_update"):
+        return f(*a, **kw)
+    return run
+
+  fn()                       # warm
+  torch.cuda.synchronize()
+  undo = _patched(kmeans, "weighted_update", marked)
+  try:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      fn()
+      torch.cuda.synchronize()
+      wall_ms = (time.perf_counter() - t0) * 1e3
+  finally:
+    undo()
+  rows, update = [], []
+  for e in prof.key_averages():
+    if e.key == "kmeans.weighted_update":
+      # the range on the host (its kernels' device time) and its copy on
+      # the device's timeline (not a kernel)
+      update.append((e.count, e.cpu_time_total / 1e3,
+                     e.device_time_total / 1e3))
+    elif str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
+      rows.append((e.self_device_time_total / 1e3, e.count, e.key))
+  busy = sum(r[0] for r in rows)
+  k6_ms = sum(r[0] for r in rows if "kmeans_assign_kernel" in r[2])
+  upd = ", ".join(f"{c}x cpu {cpu:.3f} ms device {dv:.3f} ms"
+                  for c, cpu, dv in update) or "not in the trace"
+  print(f"{tag} profile {label}: wall {wall_ms:.3f} ms (profiled), device "
+        f"busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
+        f"{sum(r[1] for r in rows)} kernels; K6 device {k6_ms:.3f} ms; "
+        f"kmeans.weighted_update {upd}")
+  for ms, count, name in sorted(rows, reverse=True)[:10]:
+    print(f"{tag}   {ms:.4f} ms  {count}x  {name[:90]}")
+
+  spent = {"k6": 0.0, "update": 0.0}
+  undo_u = _patched(kmeans, "weighted_update", _sync_timed(spent, "update"))
+  undo_k = _patched(kops, "kmeans_assign", _sync_timed(spent, "k6"))
+  try:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+  finally:
+    undo_k()
+    undo_u()
+  print(f"{tag} profile {label}, synchronized wall: {total:.4f} s, of it "
+        f"K6 calls {spent['k6']:.4f} s ({100 * spent['k6'] / total:.1f}%), "
+        f"weighted_update {spent['update']:.4f} s "
+        f"({100 * spent['update'] / total:.1f}%), the rest "
+        f"{total - spent['k6'] - spent['update']:.4f} s")
+
+
 def profile_phase(models, engines, tag) -> None:
   """A contiguous decode step (`Model.decode_step`) and a paged engine step
-  (`layout.decode` + the engine's argmax and copy to the host)."""
+  (`layout.decode` + the engine's argmax and copy to the host); then the pq
+  prefill of `ServeRun` (batch 4) and of one engine admission (batch 1,
+  the engine's padded prompt)."""
   for policy, (run, model) in models.items():
     prompts = run.prompts(model.cfg.vocab_size).to(model.device)
     logits, cache = model.prefill(prompts)
@@ -1012,6 +1193,18 @@ def profile_phase(models, engines, tag) -> None:
     profile_steps(lambda: torch.argmax(
         layout.decode(engine._cur, engine._lengths), -1).cpu(), tag,
         f"{policy} paged block-native")
+  run, model = models["pq"]
+  prompts = run.prompts(model.cfg.vocab_size).to(model.device)
+  profile_prefill(lambda: model.prefill(prompts), tag,
+                  f"pq ServeRun prefill (batch {BATCH}, prompt {PROMPT})")
+  engine = engines["pq"]
+  padded = torch.zeros((1, engine.prompt_capacity), dtype=torch.long,
+                       device=engine.model.device)
+  padded[0, :PROMPT] = prompts[0]
+  plen = torch.tensor([PROMPT], dtype=torch.int32, device=engine.model.device)
+  profile_prefill(lambda: engine.model.prefill(padded, plen), tag,
+                  f"pq engine admission prefill (batch 1, prompt {PROMPT} "
+                  f"padded to {engine.prompt_capacity})")
 
 
 def main() -> int:

@@ -93,6 +93,19 @@ def load(name: str) -> ctypes.CDLL:
 
 
 _CHECKED_DEVICES = set()
+_SM_COUNTS: Dict[str, int] = {}
+
+H100_SMS = 132                 # the default the split pickers assume
+
+
+def sm_count(device) -> int:
+  """The device's SM count (queried once per device)."""
+  key = str(device)
+  if key not in _SM_COUNTS:
+    import torch
+    _SM_COUNTS[key] = torch.cuda.get_device_properties(
+        device).multi_processor_count
+  return _SM_COUNTS[key]
 
 
 def require_sm90(device) -> None:

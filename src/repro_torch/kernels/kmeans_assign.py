@@ -11,6 +11,11 @@ Shapes: x (R, N, dsub) and centroids (R, K, dsub), each bf16 or f32, R the
 flattened leading dimensions (batch, head, subvector) of the batched k-means
 in place of the TPU kernel's m grid axis.  Returns (R, N) int32.
 
+On the card each thread holds 4 points and walks the row's centroids, split
+over 1, 2 or 4 neighbouring lanes (`kmeans_assign_geometry` picks the split
+from R, N, K and the SM count, so that the prefill's R = 512 and an engine
+admission's R = 128 both fill the card).
+
 Dropping ||x||^2 changes the rounding of each distance, so on a near-tie
 the id may differ from `core.kmeans.assign_clusters` (the full distance);
 on tie-free inputs the two agree.
@@ -24,7 +29,10 @@ import torch
 from repro_torch.kernels import _build
 
 SMEM_LIMIT = 232448            # bytes of shared memory one H100 block may use
-MAX_ROWS = 65535               # the grid's y axis
+THREADS = 256                  # threads of a K6 block
+POINTS = 4                     # points each thread holds (the kernel's kP)
+LANES = (1, 2, 4)              # splits of a row's centroids over lanes
+MAX_BLOCKS = 2 ** 31 - 1       # the grid's x axis: (row, tile of points)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _DSUBS = (1, 2, 4, 8, 16)
 
@@ -44,15 +52,41 @@ def kmeans_assign_plain(x: torch.Tensor, centroids: torch.Tensor
   return torch.argmin(c_sq[:, None, :] - 2.0 * cross, dim=-1).to(torch.int32)
 
 
+def kmeans_assign_geometry(r: int, n: int, k: int,
+                           sms: int = _build.H100_SMS) -> int:
+  """L: K6's split of a row's K centroids over L neighbouring lanes.
+
+  The least L of (1, 2, 4) at which the launch has at least 3 blocks per SM
+  (24 warps each), where a block of 256 threads holds 256 / L * 4 points,
+  or 4 if none does; never more lanes than centroids.  At R = 512, N =
+  1024 this is 1 (512 blocks), at R = 128 it is 4 (512 blocks).
+  """
+  for lanes in LANES:
+    per_block = THREADS // lanes * POINTS
+    if lanes * 2 > k or r * -(-n // per_block) >= 3 * sms:
+      return lanes
+  return LANES[-1]
+
+
+_LIB = {}
+
+
 def _lib() -> ctypes.CDLL:
-  lib = _build.load("kmeans_assign")
-  fn = lib.kmeans_assign_launch
-  fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-  fn.restype = ctypes.c_int
-  lib.kmeans_assign_smem_bytes.argtypes = [ctypes.c_int] * 2
-  lib.kmeans_assign_smem_bytes.restype = ctypes.c_size_t
-  return lib
+  """K6's library, its argument types set once."""
+  if "lib" not in _LIB:
+    lib = _build.load("kmeans_assign")
+    fn = lib.kmeans_assign_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.kmeans_assign_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.kmeans_assign_smem_bytes.restype = ctypes.c_size_t
+    _LIB["lib"] = lib
+  return _LIB["lib"]
+
+
+# (K, dsub) -> True once K6's block takes it
+_FITS = {}
 
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -76,19 +110,22 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
                     f"{centroids.dtype}")
   if dsub not in _DSUBS:
     raise ValueError(f"K6 takes dsub in {_DSUBS}, got {dsub}")
-  if r > MAX_ROWS:
-    raise ValueError(f"K6 takes R <= {MAX_ROWS}, got {r}")
   if not (x.is_contiguous() and centroids.is_contiguous()):
     raise ValueError("K6 inputs must be contiguous")
+  lanes = kmeans_assign_geometry(r, n, k, _build.sm_count(x.device))
+  if r * -(-n // (THREADS // lanes * POINTS)) > MAX_BLOCKS:
+    raise ValueError(f"K6's grid cannot hold R={r} rows of N={n} points")
   lib = _lib()
-  smem = lib.kmeans_assign_smem_bytes(k, dsub)
-  if smem > SMEM_LIMIT:
-    raise ValueError(f"K6 needs {smem} B of shared memory for K={k}; a block "
-                     f"has {SMEM_LIMIT}")
+  if (k, dsub) not in _FITS:
+    smem = lib.kmeans_assign_smem_bytes(k, dsub)
+    if smem > SMEM_LIMIT:
+      raise ValueError(f"K6 needs {smem} B of shared memory for K={k}; a "
+                       f"block has {SMEM_LIMIT}")
+    _FITS[(k, dsub)] = True
   out = torch.empty((r, n), dtype=torch.int32, device=x.device)
   err = lib.kmeans_assign_launch(
       _DTYPE_CODES[x.dtype], _DTYPE_CODES[centroids.dtype], x.data_ptr(),
-      centroids.data_ptr(), out.data_ptr(), r, n, k, dsub,
+      centroids.data_ptr(), out.data_ptr(), r, n, k, dsub, lanes,
       torch.cuda.current_stream(x.device).cuda_stream)
   if err != 0:
     raise RuntimeError(f"kmeans_assign kernel launch failed: CUDA error {err}")

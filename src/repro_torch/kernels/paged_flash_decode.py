@@ -34,10 +34,10 @@ import torch
 
 from repro_torch.core import pq_attention as pqa
 from repro_torch.kernels import _build, packing
-from repro_torch.kernels.pq_decode import check_paged
+from repro_torch.kernels.pq_decode import check_paged, dense_pages
 
 SMEM_LIMIT = 232448            # bytes of shared memory one H100 block may use
-H100_SMS = 132
+H100_SMS = _build.H100_SMS
 DECODE_TILE = 64               # K2's token tile; its chunks are whole tiles
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -131,16 +131,8 @@ def _lib() -> ctypes.CDLL:
   return _LIB["lib"]
 
 
-# (dtype, g, d) -> True once K2's block takes it; device -> SM count
+# (dtype, g, d) -> True once K2's block takes it
 _FITS = {}
-_SM_COUNT = {}
-
-
-def _sm_count(device) -> int:
-  key = str(device)
-  if key not in _SM_COUNT:
-    _SM_COUNT[key] = torch.cuda.get_device_properties(device).multi_processor_count
-  return _SM_COUNT[key]
 
 
 def _check_decode(q, k, v, length):
@@ -212,7 +204,7 @@ def flash_decode(q, k, v, length, scale: float) -> torch.Tensor:
   lib = _check_cuda(q, k, v, length)
   bh, g, d = q.shape
   n = k.shape[1]
-  n_split, chunk = flash_decode_split(bh, n, _sm_count(q.device))
+  n_split, chunk = flash_decode_split(bh, n, _build.sm_count(q.device))
   # scratch: the partials, acc (BH, S, g, d) then stats (BH, S, 2, g)
   scratch = torch.empty(bh * n_split * g * (d + 2), dtype=torch.float32,
                         device=q.device)
@@ -275,21 +267,13 @@ def flash_decode_merge(acc, stats) -> torch.Tensor:
 # K4: K/V pages read in place from the block pools
 # ---------------------------------------------------------------------------
 
-def _dense_pages(pool, tables, layer: int) -> torch.Tensor:
-  """The table-mapped pages of plane `layer` of a pool (P+1, L, H, blk, w)
-  as dense (B * H, nb * blk, w) rows."""
-  pages = pool[:, layer][tables.long()]            # (B, nb, H, blk, w)
-  b, nb, h, blk, w = pages.shape
-  return pages.permute(0, 2, 1, 3, 4).reshape(b * h, nb * blk, w)
-
-
 def paged_flash_decode_plain(q, k_pool, v_pool, tables, layer: int, length,
                              scale: float) -> torch.Tensor:
   """Plain PyTorch version of K4: gather the table-mapped pages of plane
   `layer` into dense (BH, nb * blk, d) K/V and run K2's plain version."""
   n_heads = k_pool.shape[2]
-  return flash_decode_plain(q, _dense_pages(k_pool, tables, layer),
-                            _dense_pages(v_pool, tables, layer),
+  return flash_decode_plain(q, dense_pages(k_pool, tables, layer),
+                            dense_pages(v_pool, tables, layer),
                             length.repeat_interleave(n_heads), scale)
 
 
@@ -370,8 +354,8 @@ def packed_paged_flash_decode_plain(q, k_pack, k_scale, k_min, v_pack,
 
   def dense(pack, sc, mn):
     return packing.dequant_page(
-        _dense_pages(pack, tables, layer), _dense_pages(sc, tables, layer),
-        _dense_pages(mn, tables, layer), bits=bits, group=group)
+        dense_pages(pack, tables, layer), dense_pages(sc, tables, layer),
+        dense_pages(mn, tables, layer), bits=bits, group=group)
   return flash_decode_plain(q, dense(k_pack, k_scale, k_min),
                             dense(v_pack, v_scale, v_min),
                             length.repeat_interleave(n_heads), scale)

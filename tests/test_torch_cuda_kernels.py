@@ -1,11 +1,12 @@
 """Each CUDA kernel against its plain PyTorch version, on the card.
 
-K3 is also held bit for bit to K1 on the gathered dense view: they share
-one device body and differ only in how a token's row is addressed.  K4 is
-held to K2 on that view within 1e-4, the tolerance each meets against the
-plain version: K2 splits the sequence over blocks and merges the partials,
-so its sums run in another order than K4's single pass.  K2 is held bit for
-bit to itself over two calls (its merge is deterministic).  K5 is held bit
+K3 is also held to K1 on the gathered dense view within 1e-4, the tolerance
+each meets against the plain version: K3 splits the sequence over blocks
+and merges the partials, so its sums run in another order than K1's single
+pass.  K4 is held to K2 on that view within 1e-4 for the same reason (K2
+splits, K4 does not).  K2 and K3 are held bit for bit to themselves over
+two calls (their merges are deterministic), and each of their two steps to
+its plain version.  K5 is held bit
 for bit to K4 run on the f32 pools its plain dequant produces; K6 and K8 to
 their plain versions exactly.  K7 (flash attention, the prefill's)
 is held to its plain version element by element within
@@ -173,12 +174,62 @@ def test_cuda_pq_decode_paged_matches_plain_and_k1(cuda_device, geometry,
   torch.testing.assert_close(out, plain[0], atol=CUDA_ATOL, rtol=CUDA_ATOL)
   torch.testing.assert_close(stats, plain[1], atol=CUDA_ATOL, rtol=CUDA_ATOL)
   assert torch.all(out[:h] == 0) and torch.all(stats[:h, 1] == 0)
-  # K1 on the gathered dense view runs the same device body: bit-identical
+  assert torch.all(stats[:h, 0] == t_pqd.NEG_INF)
+  # K1 on the gathered dense view: the same function, its sums in one pass
   dense = [p[:, layer][tables.long()].permute(0, 2, 1, 3, 4).reshape(
       b * h, cap, m).contiguous() for p in (kpool, vpool)]
   out1, stats1 = t_pqd.pq_decode_attention(
       q, kcb, vcb, dense[0], dense[1], ln.repeat_interleave(h), d ** -0.5)
-  assert torch.equal(out, out1) and torch.equal(stats, stats1)
+  torch.testing.assert_close(out, out1, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+  torch.testing.assert_close(stats, stats1, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", PAGED_GEOMETRIES)
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_pq_decode_paged_steps_and_two_calls(cuda_device, geometry,
+                                                  q_dtype):
+  b, h, g, d, m, k, blk, nb, n_layers, layer, idx_dtype = geometry
+  dev = cuda_device
+  gen = torch.Generator(device=dev).manual_seed(13)
+  pool_blocks = 4 * nb
+  cap = nb * blk
+  n_split, chunk = t_pqd.pq_decode_paged_split(
+      b * h, cap, torch.cuda.get_device_properties(dev).multi_processor_count)
+  q = torch.randn(b * h, g, d, generator=gen, device=dev).to(q_dtype)
+  kcb, vcb = (torch.randn(b * h, m, k, d // m, generator=gen, device=dev
+                          ).to(torch.bfloat16) for _ in range(2))
+  shape = (pool_blocks + 1, n_layers, h, blk, m)
+  kpool, vpool = (torch.randint(0, k, shape, generator=gen, device=dev
+                                ).to(idx_dtype) for _ in range(2))
+  # rows on a chunk boundary and one token either side of it, empty, full
+  special = [min(x, cap) for x in (chunk - 1, chunk, chunk + 1, 0, 1, cap,
+                                   2 * chunk - 1, 2 * chunk + 1)]
+  for i in range(0, len(special), b):
+    lengths = (special[i:i + b] * b)[:b]
+    tables, ln = _paged_inputs(gen, dev, b, nb, blk, pool_blocks, lengths)
+    args = (q, kcb, vcb, kpool, vpool, tables, layer, ln, d ** -0.5)
+    out, stats = t_pqd.pq_decode_attention_paged(*args)
+    again = t_pqd.pq_decode_attention_paged(*args)
+    plain = t_pqd.pq_decode_attention_paged_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(stats, again[1]), (
+        "two K3 calls differ")
+    torch.testing.assert_close(out, plain[0], atol=CUDA_ATOL, rtol=CUDA_ATOL)
+    torch.testing.assert_close(stats, plain[1], atol=CUDA_ATOL,
+                               rtol=CUDA_ATOL)
+    # each step against its plain version: the split kernel's partials, and
+    # the merge kernel on those partials against the plain merge
+    acc, pst = t_pqd.pq_decode_paged_partials(*args, n_split, chunk)
+    p_acc, p_pst = t_pqd.pq_decode_paged_partials_plain(*args, n_split,
+                                                        chunk)
+    torch.testing.assert_close(acc, p_acc, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+    torch.testing.assert_close(pst, p_pst, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+    m_out, m_st = t_pqd.pq_decode_paged_merge(acc, pst)
+    w_out, w_st = t_pqd.pq_decode_paged_merge_plain(acc, pst)
+    torch.testing.assert_close(m_out, w_out, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+    torch.testing.assert_close(m_st, w_st, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+    assert torch.equal(m_out, out) and torch.equal(m_st, stats)
 
 
 @pytest.mark.cuda
@@ -272,6 +323,51 @@ def test_cuda_kmeans_assign_matches_plain(cuda_device, r, n, k, dsub, dtypes):
   assert t_k6.kmeans_assign.launches == before + 1
   assert got.dtype == torch.int32 and got.shape == (r, n)
   assert torch.equal(got, want)
+
+
+def _planted(gen, dev, r, n, k, dsub, x_dtype):
+  """K6 inputs with exact ties (each centroid twice, points on centroids),
+  NaN and +-inf in points and centroids, and finite values large enough
+  that products overflow (rows 1-5 of R; every row has the ties)."""
+  half = torch.randn(r, (k + 1) // 2, dsub, generator=gen, device=dev)
+  c = torch.cat([half, half.flip(1)], dim=1)[:, :k].contiguous()
+  x = torch.randn(r, n, dsub, generator=gen, device=dev)
+  on = torch.randint(0, k, (r, n // 4), generator=gen, device=dev)
+  x[:, ::4][:, :on.shape[1]] = torch.gather(
+      c, 1, on[..., None].expand(-1, -1, dsub))
+  plant = [(x, 0, 3, float("nan")), (x, 1, 5, float("inf")),
+           (x, 2, 7, -float("inf")), (c, 3, k // 2, float("nan")),
+           (c, 4, 0, float("inf")), (x, 5, 9, 3e38)]
+  for t, row, i, v in plant:
+    if row < r and i < t.shape[1]:
+      t[row, i, 0] = v
+  if r > 5:
+    c[5, 1, :] = 1e30          # finite, but x . c overflows to inf
+  return x.to(x_dtype), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,k,dsub", [
+    (512, 1024, 512, 2),     # the serve prefill, no split of the centroids
+    (128, 1024, 512, 2),     # an engine admission, 4 lanes per point
+    (1, 1024, 512, 2),
+    (6, 50, 3, 4),           # 2 lanes: as many as the centroids allow
+    (6, 300, 16, 16),
+])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_kmeans_assign_planted_ties_nan_inf(cuda_device, r, n, k, dsub,
+                                                 x_dtype):
+  dev = cuda_device
+  gen = torch.Generator(device=dev).manual_seed(14)
+  x, c = _planted(gen, dev, r, n, k, dsub, x_dtype)
+  before = t_k6.kmeans_assign.launches
+  got = t_k6.kmeans_assign(x, c)
+  want = t_k6.kmeans_assign_plain(x, c)
+  torch.cuda.synchronize()
+  assert t_k6.kmeans_assign.launches == before + 1
+  bad = got != want
+  assert not bad.any(), (
+      f"{int(bad.sum())} ids differ, first at {bad.nonzero()[:4].tolist()}")
 
 
 @pytest.mark.cuda

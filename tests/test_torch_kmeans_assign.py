@@ -6,6 +6,12 @@
     draws from a numpy seed), in f32 and bf16;
   - on the same inputs, equal to the port's plain `assign_clusters` (the
     full distance) and so to the reference's;
+  - with planted exact ties (every centroid twice, points on centroids),
+    `kmeans_assign_plain` and the interpret kernel both take the first
+    index;
+  - `kmeans_assign_geometry` picks the least split of the centroids over
+    lanes that gives 3 blocks per SM (512 blocks at R = 512 and R = 128),
+    never more lanes than centroids;
   - the PQ prefill's wiring: with `use_kernel` every k-means assignment of
     a codebook build goes through K6's batched wrapper (iters + 1 per
     window, for K and V), and the codebooks and indices equal the plain
@@ -106,3 +112,43 @@ def test_pq_prefill_runs_every_assignment_through_k6(monkeypatch, n_windows):
   for f in got._fields:
     torch.testing.assert_close(getattr(got, f), getattr(want, f),
                                atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dsub,k", [(2, 512), (4, 16), (16, 64)])
+def test_planted_ties_take_the_first_index(dsub, k):
+  # every centroid appears twice (a second copy later in the row) and some
+  # points sit on a centroid: the distances tie exactly, and
+  # `kmeans_assign_plain` and the reference's interpret kernel both take the
+  # first copy
+  rng = np.random.default_rng(7)
+  m, n = 3, 128
+  half = rng.normal(size=(m, k // 2, dsub)).astype(np.float32)
+  c = np.concatenate([half, half[:, ::-1]], axis=1)
+  x = rng.normal(size=(m, n, dsub)).astype(np.float32)
+  x[:, ::4] = c[:, rng.integers(0, k, size=n // 4)]
+  want = np.asarray(j_ops.kmeans_assign(jnp.asarray(x), jnp.asarray(c),
+                                        blk=128, interpret=True))
+  got = t_k6.kmeans_assign_plain(torch.from_numpy(x), torch.from_numpy(c))
+  np.testing.assert_array_equal(got.numpy(), want)
+  # the first of the two copies: an id below k // 2 is the original row,
+  # above it the mirrored copy (k - 1 - i) of original i
+  first = np.minimum(want, k - 1 - want)
+  assert np.all(want == first)
+
+
+@pytest.mark.parametrize("r,n,k", [(512, 1024, 512), (128, 1024, 512),
+                                   (8, 300, 16), (1, 64, 8), (4, 10, 1),
+                                   (1, 1, 2), (3, 100, 3), (2048, 1024, 512)])
+def test_kmeans_assign_geometry_fills_the_card(r, n, k):
+  sms = 132
+  lanes = t_k6.kmeans_assign_geometry(r, n, k, sms)
+  assert lanes in t_k6.LANES and lanes <= k
+  blocks = r * -(-n // (t_k6.THREADS // lanes * t_k6.POINTS))
+  # the least split with 3 blocks per SM, or the widest the centroids allow
+  narrower = [l for l in t_k6.LANES if l < lanes]
+  assert all(r * -(-n // (t_k6.THREADS // l * t_k6.POINTS)) < 3 * sms
+             for l in narrower)
+  assert blocks >= 3 * sms or lanes == t_k6.LANES[-1] or 2 * lanes > k
+  # the serve prefill and an engine admission both launch 512 blocks
+  if (n, k) == (1024, 512) and r in (128, 512):
+    assert blocks == 512
