@@ -11,16 +11,20 @@ Needs one CUDA card (built for an H100, sm_90a) and the CUDA toolkit.  It
      K2 on the bf16 store and on the f32 store of the exact q4 path, each
      of its two steps against its plain version and two calls bit-equal;
      K3/K4/K5 the paged engine path: layer 21 of 22, shuffled block tables
-     with trash entries, ragged lengths, K3's split and merge steps each
-     against their plain versions, two K3 calls bit-equal and K3 within
-     1e-4 of K1 on the gathered view; K6 the pq prefill's k-means at R = 512
-     and R = 128, also with planted ties, NaN and inf; K7 the
+     with trash entries, ragged lengths, K3's and K5's split and merge steps
+     each against their plain versions, two K3 and two K5 calls bit-equal,
+     K3 within 1e-4 of K1 on the gathered view and K5 within 1e-4 of K4 on
+     the dequantized pools; K6 the pq prefill's k-means at R = 512
+     and R = 128, also with planted ties, NaN and inf; B0 (the k-means
+     update) at R = 512 and R = 128, bf16 and f32 points, with empty
+     clusters, zero weights, one cluster, K > N and 16k-token bodies at
+     dsub 2 and 4, two calls bit-equal; K7 the
      prefill attention of `ServeRun` and of an engine admission, a ragged N,
      a non-causal and an f32 case; K8 the contiguous q4 store) and times
      kernel, plain version, the bound and (where one exists) a single
      PyTorch library call, printing K2's and K7's factor over that call,
-     each kernel's share of the bound, and K3's and K6's times before their
-     redesign;
+     each kernel's share of the bound, and K3's, K5's and K6's times
+     before their redesign;
   3. serves full-width tinyllama-1.1b (random bf16 weights from a seed)
      through `ServeRun` with the `pq` policy, the `exact` policy and the
      `exact` policy on its packed q4 store, batch 4, prompt 1024, 16
@@ -29,8 +33,9 @@ Needs one CUDA card (built for an H100, sm_90a) and the CUDA toolkit.  It
      at prompt 1000 (a length no tile or block divides), and checks from the
      launch counters that every layer of every prefill ran K7, every layer
      of every decode step ran its kernels (K1; K2; K8 and K2; none for the
-     baselines but `pqcache`'s index build through K6) and every k-means
-     assignment of every pq prefill ran K6;
+     baselines but `pqcache`'s index build through K6 and B0) and every
+     k-means assignment of every pq prefill ran K6 and every update B0 (and
+     none the plain one-hot update);
   4. serves it through the continuous-batching `ServeEngine` on the paged
      layout with the paged scheduler (the `--engine` CLI demo: 6 requests of
      1024 down to 939 prompt tokens, 16 new tokens each, 4 slots), for
@@ -39,7 +44,7 @@ Needs one CUDA card (built for an H100, sm_90a) and the CUDA toolkit.  It
      that age out are freed), and checks that every layer of every
      admission's prefill ran K7, every decode step K3, K4 or K5 (the
      baseline: the dense gather program, no kernel) and every pq admission
-     K6;
+     K6 and B0;
   5. parity, cuda against torch dispatch: prefill logits of `pq`,
      `exact` (prompts of 1024 and of 1000), `exact` q4 and `snapkv`, and
      `Model.forward` logits of one
@@ -52,9 +57,10 @@ Needs one CUDA card (built for an H100, sm_90a) and the CUDA toolkit.  It
   6. profiles 3 decode steps per policy and layout (`torch.profiler`):
      device busy share and the kernels that take the device time; then one
      pq prefill of `ServeRun` (batch 4) and one of an engine admission
-     (batch 1): device busy share, K6's and the k-means update's device
-     time, the largest device entries, and in a second call the wall seconds
-     spent in K6 and in `weighted_update` (a synchronize around each call).
+     (batch 1): device busy share, K6's, B0's and the k-means update's
+     device time, the largest device entries, and in a second call the wall
+     seconds spent in K6 and in `weighted_update` (a synchronize around each
+     call).
 
 Every check that fails raises, so the script exits non-zero.  The last line
 is a JSON object naming the device; the line before it the card's name and
@@ -118,6 +124,13 @@ KERNEL_ATOL = 1e-4
 K3_BEFORE_MS, K6_BEFORE_MS = 0.19777408599853516, 0.17291584014892578
 # pqcache's index build: (iters 4 + 1) assignments per layer per decode step
 K6_PER_PQCACHE_STEP = 5 * N_LAYERS
+# k-means updates (B0): iters 4 per codebook, K and V, in every layer of a
+# pq prefill; 4 per layer per pqcache decode step
+B0_PER_PREFILL = 4 * 2 * N_LAYERS
+B0_PER_PQCACHE_STEP = 4 * N_LAYERS
+# K5's time before its redesign (one block per (batch, kv head) on K4's
+# body; PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W)
+K5_BEFORE_MS = 0.3158284759521484
 # Logits of the cuda vs torch dispatch: the models run in bf16, so an f32
 # difference of 1e-6 in one attention output can flip a bf16 rounding (2^-8
 # relative) that 22 layers carry to the logits.
@@ -473,8 +486,11 @@ def paged_kernel_phase(dev, tag) -> dict:
 def packed_kernel_phase(dev, tag) -> dict:
   """K5 and K8 against their plain versions: K5 at the paged q4 engine
   path's shapes (the engine's first batch, layer 21 of 22, shuffled tables)
-  for bits 4, 5 and 8, and bit for bit against K4 on the f32 pools the
-  plain dequant gives; K8 at the contiguous q4 store of `ServeRun`."""
+  for bits 4, 5 and 8, two calls bit-equal, its split step against its plain
+  version and K2's merge on its partials against the plain merge, and
+  within 1e-4 of K4 on the f32 pools the plain dequant gives (K5 splits the
+  pages, K4 sums in one pass); K8 at the contiguous q4 store of
+  `ServeRun`."""
   from repro_torch.kernels import packing
   from repro_torch.kernels import paged_flash_decode as pfd
 
@@ -490,7 +506,9 @@ def packed_kernel_phase(dev, tag) -> dict:
   nb = (PROMPT + 32) // BLK
   pool_blocks = 4 * nb
   shape = (pool_blocks + 1, N_LAYERS, h, BLK)
-  res, errs, inputs = {}, {}, {}
+  n_split, chunk = pfd.flash_decode_split(
+      bh, nb * BLK, torch.cuda.get_device_properties(dev).multi_processor_count)
+  res, errs, k4_errs, step_errs, inputs = {}, {}, {}, {}, {}
   for bits in (4, 5, 8):
     pools = []
     for _ in range(2):      # K, then V: codes, scale, min from normal draws
@@ -499,25 +517,39 @@ def packed_kernel_phase(dev, tag) -> dict:
     del x
     kf = packing.dequant_page(*pools[:3], bits=bits, group=group)
     vf = packing.dequant_page(*pools[3:], bits=bits, group=group)
-    errs[bits] = 0.0
+    errs[bits] = k4_errs[bits] = step_errs[bits] = 0.0
     for length in (cached, ragged):
       tables = _paged_tables(gen, dev, length, nb, pool_blocks)
-      out = pfd.packed_paged_flash_decode(q, *pools, tables, layer, length,
-                                          scale, bits)
-      ref = pfd.packed_paged_flash_decode_plain(q, *pools, tables, layer,
-                                                length, scale, bits)
+      args = (q, *pools, tables, layer, length, scale, bits)
+      out = pfd.packed_paged_flash_decode(*args)
+      again = pfd.packed_paged_flash_decode(*args)
+      ref = pfd.packed_paged_flash_decode_plain(*args)
       out4 = pfd.paged_flash_decode(q.float(), kf, vf, tables, layer, length,
                                     scale)
+      acc, st = pfd.packed_paged_flash_decode_partials(*args, n_split, chunk)
+      p_acc, p_st = pfd.packed_paged_flash_decode_partials_plain(
+          *args, n_split, chunk)
+      merged = pfd.flash_decode_merge(acc, st)
+      p_merged = pfd.flash_decode_merge_plain(acc, st)
       torch.cuda.synchronize()
       if not torch.isfinite(out).all():
         raise AssertionError(f"K5 (bits {bits}) output is not finite")
-      if not torch.equal(out, out4):
-        raise AssertionError(f"K5 (bits {bits}) is not bit-identical to K4 "
-                             f"on the dequantized pools")
+      if not (torch.equal(out, again) and torch.equal(out, merged)):
+        raise AssertionError(f"K5 (bits {bits}): two calls on the same "
+                             f"inputs differ, or differ from K2's merge of "
+                             f"its own partials")
+      # the stats hold denominators of up to ~1e3: held as the card tests
+      # hold them, within 1e-4 absolute plus 1e-4 relative
+      for a, w in ((out, out4), (acc, p_acc), (st, p_st), (merged, p_merged)):
+        torch.testing.assert_close(a, w, atol=KERNEL_ATOL, rtol=1e-4)
       empty = (length == 0).repeat_interleave(h)
       if empty.any() and out[empty].abs().max() != 0:
         raise AssertionError("K5 empty rows must give out 0")
       errs[bits] = max(errs[bits], float((out - ref).abs().max()))
+      k4_errs[bits] = max(k4_errs[bits], float((out - out4).abs().max()))
+      step_errs[bits] = max(step_errs[bits],
+                            float((acc - p_acc).abs().max()),
+                            float((merged - p_merged).abs().max()))
     inputs[bits] = pools
     del kf, vf
   if not max(errs.values()) <= KERNEL_ATOL:
@@ -526,6 +558,9 @@ def packed_kernel_phase(dev, tag) -> dict:
   tables = _paged_tables(gen, dev, cached, nb, pool_blocks)
   ms = cuda_time_ms(lambda: pfd.packed_paged_flash_decode(
       q, *pools, tables, layer, cached, scale, 4))
+  dev_ms = device_ms(lambda: pfd.packed_paged_flash_decode(
+      q, *pools, tables, layer, cached, scale, 4),
+      ("packed_split_kernel", "flash_decode_merge_kernel"))
   plain_ms = cuda_time_ms(lambda: pfd.packed_paged_flash_decode_plain(
       q, *pools, tables, layer, cached, scale, 4))
   rows = int(cached.sum()) * h
@@ -539,13 +574,20 @@ def packed_kernel_phase(dev, tag) -> dict:
       source="src/repro_torch/csrc/packed_paged_flash_decode.cu",
       replaces="src/repro/kernels/paged_flash_decode.py:283",
       max_abs_err=errs[4], max_abs_err_q5=errs[5], max_abs_err_q8=errs[8],
-      tolerance=KERNEL_ATOL, bit_identical_to_k4=True, ms=ms,
-      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-  print(f"{tag} K5 packed_paged_flash_decode: max_abs_err q4 {errs[4]:.3e} "
-        f"q5 {errs[5]:.3e} q8 {errs[8]:.3e} (tol {KERNEL_ATOL}), "
-        f"bit-identical to K4 on the dequantized pools; q4 kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us ({b_by}, "
-        f"{nbytes} B) library n/a")
+      tolerance=KERNEL_ATOL, bit_equal_calls=True, split=[n_split, chunk],
+      k4_err=max(k4_errs.values()), step_err=max(step_errs.values()), ms=ms,
+      device_ms=dev_ms, before_ms=K5_BEFORE_MS, plain_ms=plain_ms,
+      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+  print(f"{tag} K5 packed_paged_flash_decode (split S {n_split} x {chunk} "
+        f"tokens, K2's merge): max_abs_err q4 {errs[4]:.3e} q5 "
+        f"{errs[5]:.3e} q8 {errs[8]:.3e} (tol {KERNEL_ATOL}), two calls "
+        f"bit-equal, steps within {max(step_errs.values()):.3e} of their "
+        f"plain versions, within {max(k4_errs.values()):.3e} of K4 on the "
+        f"dequantized pools; q4 kernel {ms:.4f} ms a call (before the "
+        f"redesign: {K5_BEFORE_MS}), of it {dev_ms:.4f} ms on the device "
+        f"(split + merge) plain {plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us "
+        f"({b_by}, {nbytes} B), {b_ms / ms:.4f} of the bound "
+        f"({b_ms / dev_ms:.4f} of the device time); library n/a")
   del inputs, pools
 
   # K8 at ServeRun's contiguous q4 store: B * H * capacity rows of d/2 B
@@ -647,6 +689,146 @@ def kmeans_kernel_phase(dev, tag) -> dict:
       library_ms=None, cases=cases)}
 
 
+def _b0_case(gen, dev, r, n, k_cent, dsub, x_dtype, kind):
+  """B0 inputs as the prefill hands them: x (R, N, dsub), w (R, N) f32
+  importance-like weights, ids (R, N) int32, old centroids (R, K, dsub) f32.
+  kind: 'k6' (K6's ids of x against the centroids); 'empty' (even ids only:
+  every odd cluster is empty); 'zero_w' (every 4th weight 0, as masked rows
+  give them, and cluster 1 weightless); 'one' (every point in cluster 3)."""
+  from repro_torch.kernels import kmeans_assign as k6
+  x = torch.randn(r, n, dsub, generator=gen, device=dev).to(x_dtype)
+  w = torch.rand(r, n, generator=gen, device=dev) + 0.05
+  c = torch.randn(r, k_cent, dsub, generator=gen, device=dev)
+  a = torch.randint(0, k_cent, (r, n), generator=gen, device=dev,
+                    dtype=torch.int32)
+  if kind == "k6":
+    a = k6.kmeans_assign(x, c)
+  elif kind == "empty":
+    a = (a // 2) * 2
+  elif kind == "zero_w":
+    w[:, ::4] = 0
+    w[a == 1] = 0
+  elif kind == "one":
+    a[:] = 3
+  return x, w, a, c
+
+
+def kmeans_update_phase(dev, tag) -> dict:
+  """B0 (the k-means update) against its plain one-hot version at the pq
+  prefill's shapes: R = 512 (`ServeRun`, batch 4) and R = 128 (an engine
+  admission) rows of N = 1024 points against K = 512 centroids of dsub = 2,
+  bf16 and f32 points, with K6's ids, empty clusters, zero weights and
+  every point in one cluster; K > N (N = 100); and 16k-token bodies at
+  dsub 2 and 4 (a long prompt's prefill).  Element by element
+  within `kmeans_update_tolerance`, frozen clusters bit-equal to the old
+  centroids, two calls bit-equal.  Timed at both prefill shapes with bf16
+  points (the model's keys) and K6's ids."""
+  from repro_torch.kernels import kmeans_update as b0
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  gen = torch.Generator(device=dev).manual_seed(5)
+  n, k_cent, dsub = 1024, 512, 2
+  share, checked, cases = 0.0, 0, []
+  shapes = [(BATCH * 4 * 32, n), (4 * 32, n), (BATCH * 4 * 32, 100)]
+  for r, nn in shapes:
+    for x_dtype in (torch.bfloat16, torch.float32):
+      for kind in ("k6", "empty", "zero_w", "one"):
+        x, w, a, c = _b0_case(gen, dev, r, nn, k_cent, dsub, x_dtype, kind)
+        got = b0.kmeans_update(x, w, a, c)
+        again = b0.kmeans_update(x, w, a, c)
+        want = b0.kmeans_update_plain(x, w, a, c)
+        tol, empty = b0.kmeans_update_tolerance(x, w, a, c)
+        torch.cuda.synchronize()
+        label = f"R={r} N={nn} {str(x_dtype)[6:]} {kind}"
+        if not torch.equal(got, again):
+          raise AssertionError(f"B0 {label}: two calls on the same inputs "
+                               f"differ")
+        if not torch.equal(got[empty], c[empty]):
+          raise AssertionError(f"B0 {label}: a frozen cluster moved")
+        sh = float(((got - want).abs() / tol).max())
+        if not sh <= 1.0:
+          raise AssertionError(f"B0 {label}: {sh:.3f} of its bound "
+                               f"(max abs err "
+                               f"{float((got - want).abs().max())})")
+        share = max(share, sh)
+        checked += 1
+        del x, w, a, c, got, again, want, tol, empty
+  # long bodies: a 16k-token pq prefill at batch 1, each row one head's
+  # subvector over the whole body (B0 streams it in tiles): tinyllama's
+  # Hkv 4 x m 32 rows at dsub 2, and a head_dim 128 model's Hkv 8 x m 32 at
+  # dsub 4.  The plain version and the tolerance run 32 rows at a time
+  # (their one-hot is (R, N, K)).
+  long_cases = []
+  for r, nn, ds in ((4 * 32, 16384, 2), (8 * 32, 16384, 4)):
+    for kind in ("k6", "one"):
+      x, w, a, c = _b0_case(gen, dev, r, nn, k_cent, ds, torch.bfloat16, kind)
+      got = b0.kmeans_update(x, w, a, c)
+      again = b0.kmeans_update(x, w, a, c)
+      label = f"R={r} N={nn} dsub {ds} bfloat16 {kind}"
+      if not torch.equal(got, again):
+        raise AssertionError(f"B0 {label}: two calls on the same inputs "
+                             f"differ")
+      sh = 0.0
+      for i in range(0, r, 32):
+        sl = slice(i, i + 32)
+        want = b0.kmeans_update_plain(x[sl], w[sl], a[sl], c[sl])
+        tol, empty = b0.kmeans_update_tolerance(x[sl], w[sl], a[sl], c[sl])
+        if not torch.equal(got[sl][empty], c[sl][empty]):
+          raise AssertionError(f"B0 {label}: a frozen cluster moved")
+        sh = max(sh, float(((got[sl] - want).abs() / tol).max()))
+        del want, tol, empty
+      if not sh <= 1.0:
+        raise AssertionError(f"B0 {label}: {sh:.3f} of its bound")
+      share = max(share, sh)
+      checked += 1
+      if kind == "k6":
+        ms = cuda_time_ms(lambda: b0.kmeans_update(x, w, a, c), iters=20)
+        long_cases.append(dict(r=r, n=nn, dsub=ds, ms=ms, tolerance_share=sh))
+        print(f"{tag} B0 kmeans_update long body R={r} (N {nn}, K {k_cent}, "
+              f"dsub {ds}, bf16 x, K6's ids): kernel {ms:.4f} ms, "
+              f"{sh:.4f} of kmeans_update_tolerance")
+      del x, w, a, c, got, again
+  err = 0.0
+  for r in (BATCH * 4 * 32, 4 * 32):
+    x, w, a, c = _b0_case(gen, dev, r, n, k_cent, dsub, torch.bfloat16, "k6")
+    got = b0.kmeans_update(x, w, a, c)
+    want = b0.kmeans_update_plain(x, w, a, c)
+    err = max(err, float((got - want).abs().max()))
+    ms = cuda_time_ms(lambda: b0.kmeans_update(x, w, a, c))
+    plain_ms = cuda_time_ms(lambda: b0.kmeans_update_plain(x, w, a, c),
+                            iters=10)
+    # read x, w, the ids and the old centroids once, write the new ones
+    nbytes = (x.numel() * x.element_size() + w.numel() * 4 + a.numel() * 4
+              + 2 * c.numel() * 4)
+    # per point: a weight sum and dsub products and sums; per centroid
+    # element: a divide
+    ops = r * n * (1 + 2 * dsub) + c.numel()
+    b_ms, b_by = bound(nbytes, ops, torch.float32)
+    cases.append(dict(r=r, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                      bound_by=b_by, nbytes=nbytes))
+    print(f"{tag} B0 kmeans_update R={r} (N {n}, K {k_cent}, dsub {dsub}, "
+          f"bf16 x, K6's ids): kernel {ms:.4f} ms plain (one-hot) "
+          f"{plain_ms:.4f} ms bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} "
+          f"B), {b_ms / ms:.4f} of the bound; library n/a")
+    del x, w, a, c, got, want
+  print(f"{tag} B0 kmeans_update: {checked} cases within "
+        f"kmeans_update_tolerance ({share:.4f} of it at worst; R 512 and "
+        f"128, bf16 and f32, K6's ids, empty clusters, zero weights, one "
+        f"cluster, K > N, 16k bodies at dsub 2 and 4), frozen clusters "
+        f"bit-equal, two calls bit-equal; "
+        f"max abs err {err:.3e} at the timed shapes")
+  serve = cases[0]
+  return {"kmeans_update": dict(
+      name="kmeans_update", route="cuda",
+      source="src/repro_torch/csrc/kmeans_update.cu",
+      replaces="src/repro/core/kmeans.py:52", max_abs_err=err,
+      tolerance="kmeans_update.kmeans_update_tolerance",
+      tolerance_share=share, bit_equal_calls=True, ms=serve["ms"],
+      plain_ms=serve["plain_ms"], bound_ms=serve["bound_ms"],
+      bound_by=serve["bound_by"], library_ms=None, cases=cases,
+      long_cases=long_cases)}
+
+
 def flash_kernel_phase(dev, tag) -> dict:
   """K7 against its plain version on the card: `ServeRun`'s prefill (batch
   4) and an engine admission (batch 1) at full width (Hq 32, Hkv 4, N 1024,
@@ -725,6 +907,7 @@ def launch_counters() -> dict:
   from repro_torch.kernels import pq_decode as pqd
   from repro_torch.kernels import flash_attention as k7
   from repro_torch.kernels import kmeans_assign as k6
+  from repro_torch.kernels import kmeans_update as b0
   from repro_torch.kernels import packing
   return {"pq_decode_attention": pqd.pq_decode_attention,
           "flash_decode": pfd.flash_decode,
@@ -732,6 +915,7 @@ def launch_counters() -> dict:
           "paged_flash_decode": pfd.paged_flash_decode,
           "packed_paged_flash_decode": pfd.packed_paged_flash_decode,
           "kmeans_assign": k6.kmeans_assign,
+          "kmeans_update": b0.kmeans_update,
           "flash_attention": k7.flash_attention,
           "unpack_u4": packing.unpack_u4_kernel}
 
@@ -743,6 +927,7 @@ def serve_phase(dev, tag) -> dict:
   none, but `pqcache` rebuilds its index through K6), every k-means
   assignment of every pq prefill K6.  Keeps the models the parity phase
   compares (the baselines' but snapkv's are dropped)."""
+  from repro_torch.kernels import kmeans_update as b0
   from repro_torch.launch.serve import ServeRun
 
   counters = launch_counters()
@@ -751,7 +936,8 @@ def serve_phase(dev, tag) -> dict:
               "exact": {"flash_decode": N_LAYERS},
               RAGGED_LABEL: {"flash_decode": N_LAYERS},
               "exact q4": {"flash_decode": N_LAYERS, "unpack_u4": 2 * N_LAYERS},
-              "pqcache": {"kmeans_assign": K6_PER_PQCACHE_STEP}}
+              "pqcache": {"kmeans_assign": K6_PER_PQCACHE_STEP,
+                          "kmeans_update": B0_PER_PQCACHE_STEP}}
   runs = [("pq", "pq", "none", GEN, PROMPT),
           ("exact", "exact", "none", GEN, PROMPT),
           ("exact q4", "exact", CODEC, GEN, PROMPT),
@@ -768,14 +954,23 @@ def serve_phase(dev, tag) -> dict:
     for c in counters.values():
       c.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
-    res = run.run(model)
+    plain_updates = [0]
+    undo = _patched(b0, "kmeans_update_plain", _counted(plain_updates))
+    try:
+      res = run.run(model)
+    finally:
+      undo()
     peak = torch.cuda.max_memory_allocated(dev)
+    if plain_updates[0]:
+      raise AssertionError(f"{label}: {plain_updates[0]} k-means updates "
+                           f"took the plain one-hot version under cuda")
     grew = {name: c.launches for name, c in counters.items()}
     want = {name: steps * per_step.get(label, {}).get(name, 0)
             for name in counters}
     want["flash_attention"] = prefills * cfg.n_layers
     if policy == "pq":
       want["kmeans_assign"] = prefills * K6_PER_PREFILL
+      want["kmeans_update"] = prefills * B0_PER_PREFILL
     if grew != want:
       raise AssertionError(f"{label}: kernel launches {grew} != {want} "
                            f"({steps} decode steps x {cfg.n_layers} layers, "
@@ -848,6 +1043,7 @@ def engine_phase(tag) -> dict:
     want["flash_attention"] = prefills * N_LAYERS
     if policy == "pq":
       want["kmeans_assign"] = prefills * K6_PER_PREFILL
+      want["kmeans_update"] = prefills * B0_PER_PREFILL
     if grew != want:
       raise AssertionError(f"engine {label}: kernel launches {grew} != "
                            f"{want} ({steps} decode steps x {N_LAYERS} "
@@ -1093,6 +1289,16 @@ def _patched(module, name, wrap):
   return lambda: setattr(module, name, orig)
 
 
+def _counted(box):
+  """fn -> fn whose calls add one to box[0]."""
+  def wrap(fn):
+    def counted(*a, **kw):
+      box[0] += 1
+      return fn(*a, **kw)
+    return counted
+  return wrap
+
+
 def _sync_timed(acc, key):
   """fn -> fn whose calls add their synchronized wall seconds to acc[key]."""
   def wrap(fn):
@@ -1110,8 +1316,8 @@ def _sync_timed(acc, key):
 def profile_prefill(fn, tag, label) -> None:
   """Where a pq prefill's time goes.  One profiled call (`torch.profiler`,
   the k-means update marked with `record_function`): wall, device busy and
-  its share, K6's device time, the update's device time, and the largest
-  device entries.  Then one call with a synchronize around every K6 call and
+  its share, K6's and B0's device time, the update's device time, and the
+  largest device entries.  Then one call with a synchronize around every K6 call and
   every `weighted_update`: the wall seconds each takes, and the rest."""
   from torch.profiler import ProfilerActivity, profile, record_function
   from repro_torch.core import kmeans
@@ -1146,11 +1352,14 @@ def profile_prefill(fn, tag, label) -> None:
       rows.append((e.self_device_time_total / 1e3, e.count, e.key))
   busy = sum(r[0] for r in rows)
   k6_ms = sum(r[0] for r in rows if "kmeans_assign_kernel" in r[2])
+  b0_rows = [r for r in rows if "kmeans_update_kernel" in r[2]]
+  b0_ms = sum(r[0] for r in b0_rows)
   upd = ", ".join(f"{c}x cpu {cpu:.3f} ms device {dv:.3f} ms"
                   for c, cpu, dv in update) or "not in the trace"
   print(f"{tag} profile {label}: wall {wall_ms:.3f} ms (profiled), device "
         f"busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
         f"{sum(r[1] for r in rows)} kernels; K6 device {k6_ms:.3f} ms; "
+        f"B0 device {b0_ms:.3f} ms ({sum(r[1] for r in b0_rows)} launches); "
         f"kmeans.weighted_update {upd}")
   for ms, count, name in sorted(rows, reverse=True)[:10]:
     print(f"{tag}   {ms:.4f} ms  {count}x  {name[:90]}")
@@ -1238,6 +1447,7 @@ def main() -> int:
   kernels.update(paged_kernel_phase(dev, tag))
   kernels.update(packed_kernel_phase(dev, tag))
   kernels.update(kmeans_kernel_phase(dev, tag))
+  kernels.update(kmeans_update_phase(dev, tag))
   kernels.update(flash_kernel_phase(dev, tag))
   print(f"{tag} kernel phase {time.monotonic() - t0:.2f} s")
   t0 = time.monotonic()

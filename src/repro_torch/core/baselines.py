@@ -125,7 +125,8 @@ def pqcache_decode_attention(q, k, v, mask, scale: float, cfg: pq.PQConfig,
                              ) -> Tuple[torch.Tensor, dict]:
   """Approximate MIPS through PQ scores, then exact attention over the
   top-`keep` tokens.  The index is a codebook built on the valid keys
-  (every assignment through K6 with `use_kernel`).
+  (every assignment through K6 and every update through B0 with
+  `use_kernel`).
 
   Returns (out (..., g, d), traffic): the exact-KV bytes that would cross
   PCIe per (batch, kv head) in the real system, and the index's bytes.

@@ -488,8 +488,9 @@ class PQCachePolicy(_ExactStorePolicy):
   PCIe (`bytes()['fetched_bytes_per_step']`).
 
   As in the reference this models selection quality and traffic, not wall
-  clock: the index is rebuilt from scratch every step (through K6 under the
-  `cuda` dispatch), where the real PQCache builds it once and appends.
+  clock: the index is rebuilt from scratch every step (through K6 and B0
+  under the `cuda` dispatch), where the real PQCache builds it once and
+  appends.
   """
 
   def _select_cfg(self, d: int) -> pqlib.PQConfig:

@@ -8,15 +8,19 @@ Every function takes leading batch dimensions (`...`) written out in place
 of the reference's `vmap` over heads and subvectors.  All accumulation is
 f32.  The assignment runs in plain PyTorch (`assign_clusters`, as the
 reference computes it in plain JAX) or, with `use_kernel`, through the CUDA
-kernel K6 (`kernels/kmeans_assign.py`); the PQ policy decides which from
-its resolved decode dispatch.
+kernel K6 (`kernels/kmeans_assign.py`); the centroid update in the
+reference's one-hot form or, with `use_kernel`, through the CUDA kernel B0
+(`kernels/kmeans_update.py`); the PQ policy decides which from its resolved
+decode dispatch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import kmeans_update as _b0
 from repro_torch.kernels import ops as kops
 
 DEFAULT_ITERS = 4  # paper §III-B: "just four iterations converge"
@@ -40,24 +44,25 @@ def assign_clusters(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
   return torch.argmin(pairwise_sq_dists(x, centroids), dim=-1).to(torch.int32)
 
 
-def assigner(use_kernel: bool):
-  """The assignment step: K6 (`kernels.ops.kmeans_assign`) with
-  `use_kernel`, else plain PyTorch."""
-  return kops.kmeans_assign if use_kernel else assign_clusters
-
-
 def weighted_update(x: torch.Tensor, w: torch.Tensor, assign: torch.Tensor,
-                    centroids: torch.Tensor) -> torch.Tensor:
-  """One weighted centroid update (Eq. 2) in the reference's one-hot-matmul
-  form.  x (..., N, d), w (..., N), assign (..., N), centroids (..., K, d)."""
-  k = centroids.shape[-2]
-  onehot = torch.nn.functional.one_hot(assign.long(), k).float()  # (..., N, K)
-  wo = onehot * w.float()[..., None]
-  num = torch.matmul(wo.transpose(-1, -2), x.float())           # (..., K, d)
-  den = torch.sum(wo, dim=-2)                                   # (..., K)
-  new_centroids = num / torch.clamp_min(den, 1e-12)[..., None]
-  empty = (den <= 1e-12)[..., None]
-  return torch.where(empty, centroids.float(), new_centroids)
+                    centroids: torch.Tensor,
+                    use_kernel: bool = False) -> torch.Tensor:
+  """One weighted centroid update (Eq. 2): through B0
+  (`kernels.ops.kmeans_update`) with `use_kernel`, else in the reference's
+  one-hot-matmul form.  x (..., N, d), w (..., N), assign (..., N),
+  centroids (..., K, d) -> (..., K, d) f32; empty clusters stay frozen."""
+  if use_kernel:
+    return kops.kmeans_update(x, w, assign, centroids)
+  return _b0.kmeans_update_plain(x, w, assign, centroids)
+
+
+def steps(use_kernel: bool):
+  """(assign, update), the two steps of a k-means iteration: K6
+  (`kernels.ops.kmeans_assign`) and B0 with `use_kernel`, else plain
+  PyTorch.  `update` is this module's `weighted_update` as it stands when
+  `steps` is called, with the choice bound."""
+  assign = kops.kmeans_assign if use_kernel else assign_clusters
+  return assign, functools.partial(weighted_update, use_kernel=use_kernel)
 
 
 def init_centroids(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -73,8 +78,8 @@ def weighted_kmeans(x: torch.Tensor, w: torch.Tensor, k: int,
                     mask: Optional[torch.Tensor] = None,
                     use_kernel: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """Importance-weighted k-means (each assignment through K6 with
-  `use_kernel`).
+  """Importance-weighted k-means (each assignment through K6 and each
+  update through B0 with `use_kernel`).
 
   x (..., N, d); w (..., N) non-negative weights; mask (..., N) bool marks
   real rows (padding gets zero weight and never seeds a centroid: masked rows
@@ -88,8 +93,11 @@ def weighted_kmeans(x: torch.Tensor, w: torch.Tensor, k: int,
   total = torch.sum(w.float(), dim=-1, keepdim=True)
   w = torch.where(total > 0, w, torch.ones_like(w))
 
-  assign = assigner(use_kernel)
+  if use_kernel:
+    # K6 and B0 take contiguous rows: lay x out once, not in every call
+    x = x.contiguous()
+  assign, update = steps(use_kernel)
   centroids = init_centroids(x_init, k)
   for _ in range(iters):
-    centroids = weighted_update(x, w, assign(x, centroids), centroids)
+    centroids = update(x, w, assign(x, centroids), centroids)
   return centroids, assign(x, centroids)

@@ -356,7 +356,8 @@ def pq_cache_init(b: int, h: int, d: int, cfg: PQCacheConfig,
 def _build_body(kp, vp, wp, mask, cfg: PQCacheConfig, use_kernel: bool):
   """Cluster and encode the padded body of K, then of V (in turn, so only
   one of them holds k-means temporaries at a time); every k-means
-  assignment runs through K6 with `use_kernel`."""
+  assignment runs through K6 and every update through B0 with
+  `use_kernel`."""
   k_cb, k_idx = windowed.windowed_build_codebooks(
       kp, wp, cfg.pq, cfg.n_windows, mask=mask, use_kernel=use_kernel)
   k_cb = k_cb.to(torch.bfloat16)
@@ -415,7 +416,8 @@ def pq_cache_prefill(k, v, weights, cfg: PQCacheConfig,
   prefill step 3).  Body tokens are positions [sink, N - recent), placed at
   body offsets [0, N - sink - recent); `weights` (B, H, N) are the Eq. 1
   importance weights; `length` (B,) per-request lengths or None for N;
-  `use_kernel` runs the codebook build's assignments through K6."""
+  `use_kernel` runs the codebook build's assignments through K6 and its
+  updates through B0."""
   b, h, n, d = k.shape
   if length is not None:
     return _pq_prefill_ragged(k, v, weights, as_lengths(length, b, k.device),

@@ -44,7 +44,7 @@ def build_codebook(
 
   x (..., N, d); weights (..., N); mask (..., N) or None; init_codebook
   (..., m, K, dsub) warm start (windowed clustering) or None; `use_kernel`
-  runs every assignment through K6.
+  runs every assignment through K6 and every update through B0.
   Returns codebook (..., m, K, dsub) f32 and indices (..., N, m) int32.
   """
   m = cfg.m
@@ -60,9 +60,9 @@ def build_codebook(
     if mk is not None:
       w = torch.where(mk, w, torch.zeros_like(w))
     w = w.expand(xs.shape[:-1])
-    assign = kmeans.assigner(use_kernel)
+    assign, update = kmeans.steps(use_kernel)
     codebook = init_codebook.float()
     for _ in range(cfg.iters):
-      codebook = kmeans.weighted_update(xs, w, assign(xs, codebook), codebook)
+      codebook = update(xs, w, assign(xs, codebook), codebook)
     idx = assign(xs, codebook)
   return codebook, idx.transpose(-1, -2)

@@ -24,7 +24,8 @@ def windowed_build_codebooks(
     use_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Cluster (..., N, d) tokens into n_windows warm-started codebook pages
-  (every k-means assignment through K6 with `use_kernel`).
+  (every k-means assignment through K6 and every update through B0 with
+  `use_kernel`).
 
   Returns codebooks (..., n_windows, m, K, dsub) f32 and indices (..., N, m)
   int32.

@@ -25,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("pq_decode", "flash_decode", "pq_decode_paged",
            "paged_flash_decode", "packed_paged_flash_decode",
-           "kmeans_assign", "unpack_u4", "flash_attention")
+           "kmeans_assign", "kmeans_update", "unpack_u4", "flash_attention")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -1,9 +1,10 @@
 """Batched wrappers around the kernels, in the layouts the caches use.
 
 Port of `repro/kernels/ops.py` (dense, block-table-native and packed
-decode, the k-means assignment, flash attention): each decode wrapper folds
-(batch, kv head) into the kernels' BH axis and unfolds the result;
-`kmeans_assign` folds every leading dimension into K6's R axis.  The
+decode, the k-means assignment, flash attention; and the k-means update,
+which the reference leaves to XLA): each decode wrapper folds (batch, kv
+head) into the kernels' BH axis and unfolds the result; `kmeans_assign` and
+`kmeans_update` fold every leading dimension into K6's and B0's R axis.  The
 block-table-native wrappers pass the (B, nb) tables and (B,) lengths
 through as they are: the kernels read row bh's request as bh // H and its
 head as bh % H, as the reference's `jnp.repeat(tables, h, axis=0)` plus
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _k7
 from repro_torch.kernels import kmeans_assign as _k6
+from repro_torch.kernels import kmeans_update as _b0
 from repro_torch.kernels import paged_flash_decode as _pfd
 from repro_torch.kernels import pq_decode as _pqd
 
@@ -151,6 +153,25 @@ def kmeans_assign(
   ids = _k6.kmeans_assign(x.reshape(-1, n, dsub).contiguous(),
                           centroids.reshape(-1, k, dsub).contiguous())
   return ids.reshape(x.shape[:-1])
+
+
+def kmeans_update(
+    x: torch.Tensor,           # (..., N, dsub)
+    w: torch.Tensor,           # (..., N)
+    assign: torch.Tensor,      # (..., N)
+    centroids: torch.Tensor,   # (..., K, dsub)
+) -> torch.Tensor:
+  """One weighted centroid update (..., K, dsub) f32 through B0, one launch
+  for all leading dims; on the card its sums run in another order than the
+  one-hot matmul's (`kmeans_update.REL_TOL`), the same in every call."""
+  n, dsub = x.shape[-2:]
+  k = centroids.shape[-2]
+  new = _b0.kmeans_update(
+      x.reshape(-1, n, dsub).contiguous(),
+      w.float().expand(x.shape[:-1]).reshape(-1, n).contiguous(),
+      assign.to(torch.int32).reshape(-1, n).contiguous(),
+      centroids.float().reshape(-1, k, dsub).contiguous())
+  return new.reshape(centroids.shape)
 
 
 def flash_attention(

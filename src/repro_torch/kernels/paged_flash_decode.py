@@ -17,7 +17,9 @@ K2 runs in two steps on the card: a split kernel over (row, chunk of the
 sequence) writes unnormalised partials and a merge kernel combines them in
 chunk order (`flash_decode_split` picks the chunks from the capacity; the
 steps' plain versions are `flash_decode_partials_plain` and
-`flash_decode_merge_plain`).
+`flash_decode_merge_plain`).  K5 runs its own split kernel over the pages
+(decoding each tile as it loads it) and then K2's merge, on K2's split
+(plain first step: `packed_paged_flash_decode_partials_plain`).
 
 Shapes, as the TPU kernels: q (BH, g, d) in the cache dtype (K5: bf16 or
 f32); K2 k, v (BH, N, d) with length (BH,) int32 valid tokens; K4 pools
@@ -361,23 +363,44 @@ def packed_paged_flash_decode_plain(q, k_pack, k_scale, k_min, v_pack,
                             length.repeat_interleave(n_heads), scale)
 
 
+def packed_paged_flash_decode_partials_plain(q, k_pack, k_scale, k_min,
+                                             v_pack, v_scale, v_min, tables,
+                                             layer: int, length, scale: float,
+                                             bits: int, n_split: int,
+                                             chunk: int):
+  """Plain version of K5's first step: the table-mapped pages of plane
+  `layer`, dequantized with `packing.dequant_page`, through K2's plain
+  partials (`flash_decode_partials_plain`): acc (BH, S, g, d) and stats
+  (BH, S, 2, g) f32.  K2's merge (`flash_decode_merge_plain`) is its second
+  step."""
+  n_heads = k_pack.shape[2]
+  group = q.shape[-1] // k_scale.shape[4]
+  k, v = (packing.dequant_page(
+      dense_pages(pack, tables, layer), dense_pages(sc, tables, layer),
+      dense_pages(mn, tables, layer), bits=bits, group=group)
+      for pack, sc, mn in ((k_pack, k_scale, k_min), (v_pack, v_scale, v_min)))
+  return flash_decode_partials_plain(q, k, v, length.repeat_interleave(n_heads),
+                                     scale, n_split, chunk)
+
+
 def _lib_packed() -> ctypes.CDLL:
-  lib = _build.load("packed_paged_flash_decode")
-  fn = lib.packed_paged_flash_decode_launch
-  fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-  fn.restype = ctypes.c_int
-  lib.packed_paged_flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 2
-  lib.packed_paged_flash_decode_smem_bytes.restype = ctypes.c_size_t
-  lib.packed_paged_flash_decode_max_outputs.restype = ctypes.c_int
-  return lib
+  """K5's library, its argument types set once."""
+  if "packed" not in _LIB:
+    lib = _build.load("packed_paged_flash_decode")
+    fn = lib.packed_paged_flash_decode_split_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.packed_paged_flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.packed_paged_flash_decode_smem_bytes.restype = ctypes.c_size_t
+    lib.packed_paged_flash_decode_max_outputs.restype = ctypes.c_int
+    _LIB["packed"] = lib
+  return _LIB["packed"]
 
 
-def packed_paged_flash_decode(q, k_pack, k_scale, k_min, v_pack, v_scale,
-                              v_min, tables, layer: int, length, scale: float,
-                              bits: int) -> torch.Tensor:
-  """K5 wrapper: plain version on CPU tensors, the CUDA kernel on CUDA
-  tensors (or an error).  Counts its kernel launches in `.launches`."""
+def _check_packed(q, k_pack, k_scale, k_min, v_pack, v_scale, v_min, tables,
+                  layer, length, bits) -> None:
+  """K5's shape rules (on every device)."""
   bh, g, d = q.shape
   packs, headers = (k_pack, v_pack), (k_scale, k_min, v_scale, v_min)
   check_paged("K5", bh, packs, tables, layer, length)
@@ -393,11 +416,17 @@ def packed_paged_flash_decode(q, k_pack, k_scale, k_min, v_pack, v_scale,
     raise ValueError(f"K5: code rows {k_pack.shape[4]} != "
                      f"{packing.packed_width(d, bits)} bytes for d={d} at "
                      f"{bits} bits")
-  if q.device.type == "cpu":
-    return packed_paged_flash_decode_plain(
-        q, k_pack, k_scale, k_min, v_pack, v_scale, v_min, tables, layer,
-        length, scale, bits)
-  tensors = (q, *packs, *headers, tables, length)
+
+
+# (g, d, n_groups) -> True once K5's block takes it
+_FITS_PACKED = {}
+
+
+def _check_packed_cuda(q, pools, tables, length) -> ctypes.CDLL:
+  """K5's refusals on CUDA tensors; returns the loaded library."""
+  _, g, d = q.shape
+  k_pack, k_scale = pools[0], pools[1]
+  tensors = (q, *pools, tables, length)
   if any(t.device != q.device for t in tensors):
     raise ValueError("all K5 inputs must be on one device")
   _build.require_sm90(q.device)
@@ -412,28 +441,102 @@ def packed_paged_flash_decode(q, k_pack, k_scale, k_min, v_pack, v_scale,
   if not all(t.is_contiguous() for t in tensors):
     raise ValueError("K5 inputs must be contiguous")
   lib = _lib_packed()
-  if g * d > lib.packed_paged_flash_decode_max_outputs():
-    raise ValueError(f"K5 takes g*d <= "
-                     f"{lib.packed_paged_flash_decode_max_outputs()}, got "
-                     f"g={g}, d={d}")
-  smem = lib.packed_paged_flash_decode_smem_bytes(g, d)
-  if smem > SMEM_LIMIT:
-    raise ValueError(f"K5 needs {smem} B of shared memory; a block has "
-                     f"{SMEM_LIMIT}")
-  _, n_layers, n_heads, blk, _ = k_pack.shape
-  out = torch.empty((bh, g, d), dtype=torch.float32, device=q.device)
-  err = lib.packed_paged_flash_decode_launch(
-      _DTYPE_CODES[q.dtype], bits, q.data_ptr(), k_pack.data_ptr(),
-      k_scale.data_ptr(), k_min.data_ptr(), v_pack.data_ptr(),
-      v_scale.data_ptr(), v_min.data_ptr(), tables.data_ptr(),
-      length.data_ptr(), out.data_ptr(), bh, g, d, n_heads, blk,
-      tables.shape[1], n_layers, int(layer), n_groups, float(scale),
-      torch.cuda.current_stream(q.device).cuda_stream)
+  key = (g, d, k_scale.shape[4])
+  if key not in _FITS_PACKED:
+    if d % 16 or (d // k_scale.shape[4]) % 8:
+      raise ValueError(f"K5's kernel takes d % 16 == 0 and quant groups of a "
+                       f"multiple of 8 channels, got d={d}, "
+                       f"{k_scale.shape[4]} groups")
+    if g * d > lib.packed_paged_flash_decode_max_outputs():
+      raise ValueError(f"K5 takes g*d <= "
+                       f"{lib.packed_paged_flash_decode_max_outputs()}, got "
+                       f"g={g}, d={d}")
+    smem = lib.packed_paged_flash_decode_smem_bytes(g, d)
+    if smem > SMEM_LIMIT:
+      raise ValueError(f"K5 needs {smem} B of shared memory; a block has "
+                       f"{SMEM_LIMIT}")
+    _FITS_PACKED[key] = True
+  return lib
+
+
+def _packed_split_cuda(lib, q, pools, tables, layer, length, scale, bits,
+                       n_split, chunk, acc, stats) -> None:
+  """K5's split kernel into the partials acc (BH, S, g, d), stats (BH, S, 2,
+  g)."""
+  bh, g, d = q.shape
+  _, n_layers, n_heads, blk, _ = pools[0].shape
+  err = lib.packed_paged_flash_decode_split_launch(
+      _DTYPE_CODES[q.dtype], bits, q.data_ptr(),
+      *(t.data_ptr() for t in pools), tables.data_ptr(), length.data_ptr(),
+      acc.data_ptr(), stats.data_ptr(), bh, g, d, n_heads, blk,
+      tables.shape[1], n_layers, int(layer), pools[1].shape[4], n_split,
+      chunk, float(scale), _stream(q))
   if err != 0:
-    raise RuntimeError(f"packed_paged_flash_decode kernel launch failed: "
-                       f"CUDA error {err}")
+    raise RuntimeError(f"packed_paged_flash_decode split kernel launch "
+                       f"failed: CUDA error {err}")
+
+
+def packed_paged_flash_decode(q, k_pack, k_scale, k_min, v_pack, v_scale,
+                              v_min, tables, layer: int, length, scale: float,
+                              bits: int) -> torch.Tensor:
+  """K5 wrapper: plain version on CPU tensors, the CUDA kernels on CUDA
+  tensors (or an error): K5's split kernel over the pages, then K2's merge,
+  on the split `flash_decode_split` picks from the capacity.  `.launches`
+  counts the calls that launched them: one per call, although each call
+  runs the two kernels."""
+  pools = (k_pack, k_scale, k_min, v_pack, v_scale, v_min)
+  _check_packed(q, *pools, tables, layer, length, bits)
+  if q.device.type == "cpu":
+    return packed_paged_flash_decode_plain(q, *pools, tables, layer, length,
+                                           scale, bits)
+  lib = _check_packed_cuda(q, pools, tables, length)
+  bh, g, d = q.shape
+  n_split, chunk = flash_decode_split(bh, tables.shape[1] * k_pack.shape[3],
+                                      _build.sm_count(q.device))
+  # one allocation: out (BH, g, d), then the partials, acc (BH, S, g, d)
+  # and stats (BH, S, 2, g)
+  n_out, n_acc = bh * g * d, bh * n_split * g * d
+  buf = torch.empty(n_out + n_acc + bh * n_split * 2 * g,
+                    dtype=torch.float32, device=q.device)
+  out = buf[:n_out].view(bh, g, d)
+  acc, stats = buf[n_out:n_out + n_acc], buf[n_out + n_acc:]
+  _packed_split_cuda(lib, q, pools, tables, layer, length, scale, bits,
+                     n_split, chunk, acc, stats)
+  err = _lib().flash_decode_merge_launch(
+      acc.data_ptr(), stats.data_ptr(), out.data_ptr(), bh, g, d, n_split,
+      _stream(q))
+  if err != 0:
+    raise RuntimeError(f"flash_decode merge kernel launch failed (K5): CUDA "
+                       f"error {err}")
   packed_paged_flash_decode.launches += 1
   return out
 
 
 packed_paged_flash_decode.launches = 0
+
+
+def packed_paged_flash_decode_partials(q, k_pack, k_scale, k_min, v_pack,
+                                       v_scale, v_min, tables, layer: int,
+                                       length, scale: float, bits: int,
+                                       n_split: int, chunk: int):
+  """K5's first step alone, for checks: the plain partials on CPU tensors,
+  the split kernel's on CUDA tensors (acc (BH, S, g, d), stats (BH, S, 2,
+  g)); `flash_decode_merge` is the second step.  Not counted in
+  `packed_paged_flash_decode.launches` (no serving path calls it)."""
+  pools = (k_pack, k_scale, k_min, v_pack, v_scale, v_min)
+  _check_packed(q, *pools, tables, layer, length, bits)
+  if q.device.type == "cpu":
+    return packed_paged_flash_decode_partials_plain(
+        q, *pools, tables, layer, length, scale, bits, n_split, chunk)
+  cap = tables.shape[1] * k_pack.shape[3]
+  if n_split < 1 or chunk < 1 or (n_split - 1) * chunk >= max(cap, 1):
+    raise ValueError(f"split ({n_split}, {chunk}) does not cut {cap} tokens")
+  lib = _check_packed_cuda(q, pools, tables, length)
+  bh, g, d = q.shape
+  acc = torch.empty((bh, n_split, g, d), dtype=torch.float32,
+                    device=q.device)
+  stats = torch.empty((bh, n_split, 2, g), dtype=torch.float32,
+                      device=q.device)
+  _packed_split_cuda(lib, q, pools, tables, layer, length, scale, bits,
+                     n_split, chunk, acc, stats)
+  return acc, stats

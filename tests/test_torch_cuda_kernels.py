@@ -6,9 +6,15 @@ and merges the partials, so its sums run in another order than K1's single
 pass.  K4 is held to K2 on that view within 1e-4 for the same reason (K2
 splits, K4 does not).  K2 and K3 are held bit for bit to themselves over
 two calls (their merges are deterministic), and each of their two steps to
-its plain version.  K5 is held bit
-for bit to K4 run on the f32 pools its plain dequant produces; K6 and K8 to
-their plain versions exactly.  K7 (flash attention, the prefill's)
+its plain version.  K5 is held to K4 run on the f32 pools its plain dequant
+produces within 1e-4 (K5 splits the pages over blocks and merges through
+K2's merge, K4 does not), and bit for bit to itself over two calls, its
+split step to its plain version; K6 and K8 to their plain versions exactly.
+B0 (the k-means update) is held to its plain one-hot version element by
+element within `kmeans_update.kmeans_update_tolerance` (1e-5 of the
+cluster's mean |w x| plus 1e-7: both sum the same f32 terms in other
+orders), its frozen clusters to the old centroid bit for bit, and to itself
+over two calls.  K7 (flash attention, the prefill's)
 is held to its plain version element by element within
 `flash_attention.kernel_error_bound`: for bf16 inputs 2^-8 x the plain
 attention of |v| (the kernel rounds P to bf16 before the PV product) +
@@ -28,8 +34,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import kv_cache as t_kvc
+from repro_torch.core import pq as t_pq
 from repro_torch.kernels import flash_attention as t_k7
 from repro_torch.kernels import kmeans_assign as t_k6
+from repro_torch.kernels import kmeans_update as t_b0
 from repro_torch.kernels import packing as t_pk
 from repro_torch.kernels import paged_flash_decode as t_pfd
 from repro_torch.kernels import pq_decode as t_pqd
@@ -293,12 +302,61 @@ def test_cuda_packed_paged_flash_decode_matches_plain_and_k4(
   assert t_pfd.packed_paged_flash_decode.launches == before + 1
   torch.testing.assert_close(out, plain, atol=CUDA_ATOL, rtol=CUDA_ATOL)
   assert torch.all(out[h:2 * h] == 0)
-  # K4 on the f32 pools of the plain dequant runs the same device body
+  assert torch.equal(out, t_pfd.packed_paged_flash_decode(
+      q, *pools, tables, layer, ln, d ** -0.5, bits)), "two K5 calls differ"
+  # K4 on the f32 pools of the plain dequant: the same function, its sums in
+  # one pass where K5 splits the pages
   kf = t_pk.dequant_page(*pools[:3], bits=bits, group=group)
   vf = t_pk.dequant_page(*pools[3:], bits=bits, group=group)
   out4 = t_pfd.paged_flash_decode(q.float(), kf, vf, tables, layer, ln,
                                   d ** -0.5)
-  assert torch.equal(out, out4)
+  torch.testing.assert_close(out, out4, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [gm[:10] for gm in PAGED_GEOMETRIES[::2]])
+@pytest.mark.parametrize("bits", [4, 5, 8])
+def test_cuda_packed_paged_flash_decode_steps_and_two_calls(
+    cuda_device, geometry, bits):
+  b, h, g, d, _, _, blk, nb, n_layers, layer = geometry
+  dev = cuda_device
+  gen = torch.Generator(device=dev).manual_seed(14)
+  pool_blocks = 4 * nb
+  cap = nb * blk
+  n_split, chunk = t_pfd.flash_decode_split(
+      b * h, cap, torch.cuda.get_device_properties(dev).multi_processor_count)
+  assert n_split > 1 or cap <= t_pfd.DECODE_TILE
+  q = torch.randn(b * h, g, d, generator=gen, device=dev).to(torch.bfloat16)
+  group = t_pk.group_size(d)
+  pools = []
+  for _ in range(2):
+    x = torch.randn(pool_blocks + 1, n_layers, h, blk, d, generator=gen,
+                    device=dev)
+    pools += list(t_pk.pack_rows(x, bits=bits, group=group))
+  # rows on a chunk boundary and one token either side of it, empty, full
+  special = [min(x, cap) for x in (chunk - 1, chunk, chunk + 1, 0, 1, cap,
+                                   2 * chunk - 1, 2 * chunk + 1)]
+  for i in range(0, len(special), b):
+    lengths = (special[i:i + b] * b)[:b]
+    tables, ln = _paged_inputs(gen, dev, b, nb, blk, pool_blocks, lengths)
+    args = (q, *pools, tables, layer, ln, d ** -0.5, bits)
+    out = t_pfd.packed_paged_flash_decode(*args)
+    again = t_pfd.packed_paged_flash_decode(*args)
+    plain = t_pfd.packed_paged_flash_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "two K5 calls differ"
+    torch.testing.assert_close(out, plain, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+    # each step against its plain version: the split kernel's partials, and
+    # K2's merge kernel on those partials against the plain merge
+    acc, st = t_pfd.packed_paged_flash_decode_partials(*args, n_split, chunk)
+    p_acc, p_st = t_pfd.packed_paged_flash_decode_partials_plain(
+        *args, n_split, chunk)
+    torch.testing.assert_close(acc, p_acc, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+    torch.testing.assert_close(st, p_st, atol=CUDA_ATOL, rtol=CUDA_ATOL)
+    merged = t_pfd.flash_decode_merge(acc, st)
+    torch.testing.assert_close(merged, t_pfd.flash_decode_merge_plain(acc, st),
+                               atol=CUDA_ATOL, rtol=CUDA_ATOL)
+    assert torch.equal(merged, out)
 
 
 @pytest.mark.cuda
@@ -368,6 +426,92 @@ def test_cuda_kmeans_assign_planted_ties_nan_inf(cuda_device, r, n, k, dsub,
   bad = got != want
   assert not bad.any(), (
       f"{int(bad.sum())} ids differ, first at {bad.nonzero()[:4].tolist()}")
+
+
+def _b0_inputs(gen, dev, r, n, k, dsub, x_dtype, kind):
+  """B0 inputs on the card: x (R, N, dsub) in x_dtype, w (R, N) f32, ids
+  (R, N) int32 and old centroids (R, K, dsub) f32.  kind: 'k6' (the ids K6
+  gives x against random centroids, as in the prefill); 'empty' (even ids
+  only); 'zero_w' (every 4th weight 0 and cluster 1 weightless); 'one'
+  (every point in cluster 3)."""
+  x = torch.randn(r, n, dsub, generator=gen, device=dev).to(x_dtype)
+  w = torch.rand(r, n, generator=gen, device=dev) + 0.05
+  c = torch.randn(r, k, dsub, generator=gen, device=dev)
+  a = torch.randint(0, k, (r, n), generator=gen, device=dev,
+                    dtype=torch.int32)
+  if kind == "k6":
+    a = t_k6.kmeans_assign(x, c)
+  elif kind == "empty":
+    a = (a // 2) * 2
+  elif kind == "zero_w":
+    w[:, ::4] = 0
+    w[a == 1] = 0
+  elif kind == "one":
+    a[:] = 3 % k
+  return x, w, a, c
+
+
+def _check_b0(got, x, w, a, c):
+  """got against the plain version within the tolerance, frozen clusters
+  bit-equal to the old centroids; returns the worst share of the bound."""
+  want = t_b0.kmeans_update_plain(x, w, a, c)
+  tol, empty = t_b0.kmeans_update_tolerance(x, w, a, c)
+  assert got.dtype == torch.float32 and got.shape == c.shape
+  assert torch.equal(got[empty], c[empty]), "a frozen cluster moved"
+  share = float(((got - want).abs() / tol).max())
+  assert share <= 1.0, f"B0 exceeds its bound ({share:.3f} of it)"
+  return share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,k,dsub", [
+    (512, 1024, 512, 2),       # the serve prefill (B 4 x Hkv 4 x m 32)
+    (128, 1024, 512, 2),       # an engine admission
+    (6, 100, 512, 2),          # K > N
+    (3, 1000, 16, 4), (2, 64, 8, 16), (1, 1, 4, 1),
+    (4, 16384, 512, 2),        # a 16k body: 16 tiles of the row
+    (4, 10000, 512, 4),        # dsub 4 (head_dim 128), a ragged last tile
+])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["k6", "empty", "zero_w", "one"])
+def test_cuda_kmeans_update_matches_plain(cuda_device, r, n, k, dsub, x_dtype,
+                                          kind):
+  dev = cuda_device
+  gen = torch.Generator(device=dev).manual_seed(15)
+  x, w, a, c = _b0_inputs(gen, dev, r, n, k, dsub, x_dtype, kind)
+  before = t_b0.kmeans_update.launches
+  got = t_b0.kmeans_update(x, w, a, c)
+  again = t_b0.kmeans_update(x, w, a, c)
+  torch.cuda.synchronize()
+  assert t_b0.kmeans_update.launches == before + 2
+  assert torch.equal(got, again), "two B0 calls differ"
+  _check_b0(got, x, w, a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m", [(64, 32), (128, 32)])
+def test_cuda_long_pq_prefill_runs_b0(cuda_device, d, m):
+  """A 16k-token pq prefill (the body one row of each k-means) through K6
+  and B0, at dsub 2 and 4: every update launches B0, and the codebooks and
+  indices are finite and in range."""
+  dev = cuda_device
+  gen = torch.Generator(device=dev).manual_seed(16)
+  b, h, n, k = 1, 2, 16384, 512
+  cfg = t_kvc.PQCacheConfig(sink=4, recent=32, body_capacity=n - 36,
+                            n_windows=1, pq=t_pq.PQConfig(m=m, k=k))
+  kk, vv = (torch.randn(b, h, n, d, generator=gen, device=dev).to(
+      torch.bfloat16) for _ in range(2))
+  w = torch.rand(b, h, n, generator=gen, device=dev)
+  before = t_b0.kmeans_update.launches
+  got = t_kvc.pq_cache_prefill(kk, vv, w, cfg, use_kernel=True)
+  torch.cuda.synchronize()
+  assert t_b0.kmeans_update.launches == before + 2 * cfg.pq.iters
+  for cb in (got.key_codebooks, got.value_codebooks):
+    assert tuple(cb.shape) == (b, h, 1, m, k, d // m)
+    assert bool(torch.isfinite(cb.float()).all())
+  for idx in (got.key_indices, got.value_indices):
+    assert tuple(idx.shape) == (b, h, n - 36, m)
+    assert int(idx.min()) >= 0 and int(idx.max()) < k
 
 
 @pytest.mark.cuda
@@ -465,3 +609,33 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
   with pytest.raises(ValueError, match="contiguous"):
     t_k7.flash_attention(qa.transpose(2, 3).contiguous().transpose(2, 3), kv,
                          kv, 0.25)
+
+
+@pytest.mark.cuda
+def test_cuda_b0_and_k5_refuse_bad_inputs(cuda_device):
+  dev = cuda_device
+  x = torch.zeros(2, 8, 2, device=dev)
+  w = torch.zeros(2, 8, device=dev)
+  a = torch.zeros(2, 8, dtype=torch.int32, device=dev)
+  c = torch.zeros(2, 4, 2, device=dev)
+  with pytest.raises(TypeError, match="int32"):
+    t_b0.kmeans_update(x, w, a.long(), c)
+  with pytest.raises(TypeError, match="bf16 or f32"):
+    t_b0.kmeans_update(x.half(), w, a, c)
+  with pytest.raises(ValueError, match="dsub"):
+    t_b0.kmeans_update(torch.zeros(2, 8, 3, device=dev), w, a,
+                       torch.zeros(2, 4, 3, device=dev))
+  with pytest.raises(ValueError, match="contiguous"):
+    t_b0.kmeans_update(x, torch.zeros(8, 2, device=dev).t(), a, c)
+  # shared memory grows with K, not with N (the row streams in tiles)
+  with pytest.raises(ValueError, match="shared memory"):
+    t_b0.kmeans_update(x, w, a, torch.zeros(2, 8192, 2, device=dev))
+  # K5's kernel takes d % 16 == 0
+  q = torch.zeros(2, 2, 8, device=dev)
+  codes = torch.zeros(3, 2, 2, 4, 4, dtype=torch.uint8, device=dev)
+  hdr = torch.zeros(3, 2, 2, 4, 1, dtype=torch.float16, device=dev)
+  tables = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+  ln = torch.zeros(1, dtype=torch.int32, device=dev)
+  with pytest.raises(ValueError, match="d % 16"):
+    t_pfd.packed_paged_flash_decode(q, codes, hdr, hdr, codes, hdr, hdr,
+                                    tables, 0, ln, 0.25, 4)
